@@ -6,20 +6,39 @@
 Phases (any failure raises, and the script exits non-zero without the
 final result line):
   1. print the card (nvidia-smi name, power limit) and torch/CUDA versions;
-  2. build the kernels from volq_torch/csrc/ (one nvcc per source, in
+  2. build the four kernels from volq_torch/csrc/ (one nvcc per source, in
      parallel) and print the build seconds;
   3. set up preset c3 at full size (1024 particles, 1024 x 128^3 bank,
      1920x1080) and bake its slab banks;
-  4. hold each kernel against its plain PyTorch version on the card, at
-     the main path's shapes (all 1024 particles of a c3 frame), in bf16
-     (c3's mode) and fp32: warp_march within 1e-5 with equal clamp
-     counts, warp_composite bit-equal;
-  5. drive the main path: frames(n=8) from zeroed launch counters, which
-     must show one launch of each kernel per frame, a finite image with
-     a plausible alpha range and rendered particles; time each kernel and
+  4. hold kernels A (warp_march) and B (warp_composite) against their
+     plain PyTorch versions on the card, at the main path's shapes (all
+     1024 particles of a c3 frame), in bf16 (c3's mode) and fp32:
+     warp_march within 1e-5 with equal clamp counts, warp_composite
+     bit-equal;
+  5. drive c3's main path: frames(n=8) from zeroed launch counters, which
+     must show one launch of A and B per frame, a finite image with a
+     plausible alpha range and rendered particles; time each kernel and
      its plain version at the main path's inputs, and the frame loop
      with engine.loop.time_frames on the state already set up;
-  6. print the kernels JSON line, the card line, and last the result
+  6. set up preset c4 at full size (4096 particles, 64 x 64^3 bank,
+     center-lit: the light bake and both slab banks);
+  7. hold A and B in center-lit mode (two planes) and the unfused pair,
+     kernels C (warp_images) and D (composite_chunk), against their plain
+     versions at c4's shapes (4096 particles fused; two megachunks of
+     2048 unfused), bf16 (c4's mode) and fp32: A and C within 1e-5 with
+     equal clamp counts, B and D bit-equal;
+  8. drive c4 as shipped (fused): frames(n=8) from zeroed counters must
+     show one launch of A and B per frame; then c4 with warp_fused=False:
+     frames(n=4) from zeroed counters must show two launches of C and D
+     per frame (warp_mega=2048); both images finite with alpha in [0, 1]
+     and rendered particles; the fused and unfused images of one state
+     within 1e-4 in fp32 (the two paths are the same math) and, in bf16,
+     within the reference's full-frame budget for the c4 class, 6/256
+     (the paths round the canvas at different points: the unfused one
+     rounds each image to bf16 first and updates T as Tw * (1 - P2), the
+     fused one as Tw - Tw * P2); time every kernel, its plain version and
+     both c4 loops;
+  9. print the kernels JSON line, the card line, and last the result
      line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device
@@ -34,10 +53,16 @@ import sys
 import time
 
 # H100 SXM data-sheet peaks (NVIDIA's data sheet): HBM rate and the
-# fp32 rate outside the tensor cores (both kernels are fp32 CUDA-core code)
+# fp32 rate outside the tensor cores (the kernels are fp32 CUDA-core code)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 N_FRAMES = 8
+N_FRAMES_UNFUSED = 4
+# fused vs unfused image of one c4 state: BASELINE.md's on-device budget of
+# the c4-class bf16 rows, and the reference's fp32 budget between two paths
+BF16_BUDGET = 6 / 256
+FP32_BUDGET = 1e-4
+NAMES = ("warp_march", "warp_composite", "warp_images", "composite_chunk")
 
 
 def _card_line() -> str:
@@ -62,32 +87,56 @@ def _cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def check_kernels(state, camera, light, cfg, bank):
-    """Phase 4: kernel vs plain version at the main path's shapes (all
-    1024 particles of a c3 frame).  Returns the max abs errors
-    {kernel name: err}."""
+def _fp32(cfg):
+    return dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, warp_fp32=True, warp_canvas_fp32=True))
+
+
+def _mode(cfg) -> str:
+    return "fp32" if cfg.render.warp_fp32 else "bf16"
+
+
+def _wrappers():
+    from volq_torch.render import kernel as K
+    return {"warp_march": K.warp_march, "warp_composite": K.warp_composite,
+            "warp_images": K.warp_images,
+            "composite_chunk": K.composite_chunk}
+
+
+def _zero_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def _counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def check_fused(tag, state, camera, light, cfg, lv, errs):
+    """Kernels A and B vs their plain versions at every particle of a
+    frame, in the preset's mode and in fp32 (lit when ``lv`` is given)."""
     import torch
     from volq_torch.render import kernel as K
     from volq_torch.render.warp import fused_inputs, bake_slab_banks
     H = cfg.render.height
-    cfg32 = dataclasses.replace(cfg, render=dataclasses.replace(
-        cfg.render, warp_fp32=True, warp_canvas_fp32=True))
-    bank32 = bake_slab_banks(state.volumes, None, cfg32)[0]
-    errs = {"warp_march": 0.0, "warp_composite": 0.0}
-    for c, b in ((cfg, bank), (cfg32, bank32)):
-        march, comp, _ = fused_inputs(state.particles, camera, light, c, b,
-                                      0, H)
+    for c in (cfg, _fp32(cfg)):
+        bank, lbank = bake_slab_banks(state.volumes, lv, c)
+        march, comp, _ = fused_inputs(state.particles, camera, light, c,
+                                      bank, 0, H, lbank)
         pk, ck = K.warp_march(*march)
         pp, cpl = K.warp_march_plain(*march)
         torch.cuda.synchronize()
         err = float((pk - pp).abs().max())
-        mode = "fp32" if c.render.warp_fp32 else "bf16"
-        print(f"[kernels] warp_march {mode} N={march[-1].N}: "
-              f"max|kernel - plain| = {err:.3e}, shift_clamped "
-              f"{int(ck[0])} vs {int(cpl[0])}, P2 max {float(pk.max()):.4f}")
-        assert err <= 1e-5, f"warp_march {mode} disagrees: {err}"
+        print(f"[kernels] {tag} warp_march {_mode(c)} N={march[6].N} "
+              f"planes {tuple(pk.shape)}: max|kernel - plain| = {err:.3e}, "
+              f"shift_clamped {int(ck[0])} vs {int(cpl[0])}, "
+              f"P max {float(pk.max()):.4f}")
+        assert err <= 1e-5, f"warp_march {_mode(c)} disagrees: {err}"
         assert int(ck[0]) == int(cpl[0]), "shift_clamped disagrees"
-        assert float(pk.max()) > 0.0, "warp_march produced an empty P2"
+        assert float(pk.max()) > 0.0, "warp_march produced empty planes"
+        if lbank is not None:
+            shadow = float((pk[:, 1] - pk[:, 0]).max())
+            assert shadow > 0.01, "the light sample changed nothing"
         errs["warp_march"] = max(errs["warp_march"], err)
         del pp
 
@@ -97,40 +146,220 @@ def check_kernels(state, camera, light, cfg, bank):
         torch.cuda.synchronize()
         d = float((out_k.float() - out_p.float()).abs().max())
         touched = float((out_k.float() - canvas0.float()).abs().max())
-        print(f"[kernels] warp_composite {mode}: bit-equal "
+        print(f"[kernels] {tag} warp_composite {_mode(c)}: bit-equal "
               f"{torch.equal(out_k, out_p)}, max diff {d:.3e}, "
               f"max change vs blank canvas {touched:.4f}")
-        assert torch.equal(out_k, out_p), f"warp_composite {mode} differs"
+        assert torch.equal(out_k, out_p), f"warp_composite {_mode(c)} differs"
         assert touched > 0.0, "warp_composite left the canvas blank"
         errs["warp_composite"] = max(errs["warp_composite"], d)
-    del bank32
-    return errs
 
 
-def bounds(march, comp, canvas):
-    """Least time the card needs for each kernel's work on these inputs:
-    max(bytes moved / HBM rate, flops / fp32 rate), in ms."""
+def check_unfused(tag, state, camera, light, cfg, lv, errs):
+    """Kernels C and D vs their plain versions over every megachunk of a
+    frame (the canvas carried from chunk to chunk), bf16 and fp32."""
     import torch
     from volq_torch.render import kernel as K
-    bank, vidx, pgeom, rxu, ryw, camf, mp = march
+    from volq_torch.render.warp import unfused_inputs, bake_slab_banks
+    H = cfg.render.height
+    for c in (cfg, _fp32(cfg)):
+        bank, lbank = bake_slab_banks(state.volumes, lv, c)
+        chunks, _ = unfused_inputs(state.particles, camera, light, c, bank,
+                                   0, H, lbank)
+        canvas_k = K.canvas_init(c, H, bank.device, fused=False)
+        canvas_p = canvas_k.clone()
+        blank = canvas_k.clone()
+        for m, (img_args, comp_args) in enumerate(chunks):
+            ik, ck = K.warp_images(*img_args)
+            ip, cpl = K.warp_images_plain(*img_args)
+            torch.cuda.synchronize()
+            err = float((ik.float() - ip.float()).abs().max())
+            print(f"[kernels] {tag} warp_images {_mode(c)} chunk {m} "
+                  f"images {tuple(ik.shape)} {ik.dtype}: max|kernel - plain|"
+                  f" = {err:.3e}, shift_clamped {int(ck[0])} vs "
+                  f"{int(cpl[0])}, max {float(ik[:, :3].float().max()):.4f}")
+            assert err <= 1e-5, f"warp_images {_mode(c)} disagrees: {err}"
+            assert int(ck[0]) == int(cpl[0]), "shift_clamped disagrees"
+            assert float(ik[:, :3].float().max()) > 0.0, "empty images"
+            errs["warp_images"] = max(errs["warp_images"], err)
+            del ip
+            canvas_k = K.composite_chunk(canvas_k, ik, *comp_args)
+            canvas_p = K.composite_chunk_plain(canvas_p, ik, *comp_args)
+            torch.cuda.synchronize()
+            d = float((canvas_k.float() - canvas_p.float()).abs().max())
+            print(f"[kernels] {tag} composite_chunk {_mode(c)} chunk {m}: "
+                  f"bit-equal {torch.equal(canvas_k, canvas_p)}, max diff "
+                  f"{d:.3e}")
+            assert torch.equal(canvas_k, canvas_p), \
+                f"composite_chunk {_mode(c)} differs"
+            errs["composite_chunk"] = max(errs["composite_chunk"], d)
+        assert not torch.equal(canvas_k, blank), "canvas left blank"
+
+
+def _bound(by, fl):
+    t_b, t_f = by / HBM_BYTES_PER_S, fl / FP32_FLOP_PER_S
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def _march_work(args):
+    """(bytes in, flops) of the march + fan + exp part of kernels A and C
+    on these inputs: the slab stacks of the distinct volumes the valid
+    particles use (lit: plus one light slab each), the per-particle
+    scalars and ray vectors; per valid ray 12 flops per step, ~80 for
+    the AABB, fan and exps, ~20 more for the light sample."""
+    import torch
+    from volq_torch.render import kernel as K
+    bank, vidx, pgeom, mp = args[0], args[1], args[2], args[6]
     valid = pgeom[:, K.PG_VALID] > 0
     nv = int(valid.sum())
     stacks = int(torch.unique(vidx[valid]).numel())
-    N, RM, S = mp.N, mp.RM, mp.S
-    a_bytes = (stacks * S * mp.VX * mp.V * bank.element_size()
-               + N * (K.PG_N * 4 + 4 + 2 * RM * 4) + N * RM * RM * 4)
-    a_flops = nv * RM * RM * (12 * S + 80)
-    cp = comp[4]
-    RP = cp.RP
-    b_bytes = (2 * canvas.numel() * canvas.element_size()
-               + nv * RM * RM * 4 + N * (4 + 4 + 12 + 4))
-    b_flops = nv * RP * RP * 30
+    slab = mp.VX * mp.V * bank.element_size()
+    by = (stacks * (mp.S + (1 if mp.lit else 0)) * slab
+          + mp.N * (K.PG_N * 4 + 4 + 2 * mp.RM * 4))
+    fl = nv * mp.RM * mp.RM * (12 * mp.S + 80 + (20 if mp.lit else 0))
+    return by, fl, nv
 
-    def b(by, fl):
-        t_b, t_f = by / HBM_BYTES_PER_S, fl / FP32_FLOP_PER_S
-        return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
-    return {"warp_march": b(a_bytes, a_flops),
-            "warp_composite": b(b_bytes, b_flops)}
+
+def bounds(march, comp, canvas):
+    """Least time the card needs for kernels A and B on these inputs:
+    max(bytes moved / HBM rate, flops / fp32 rate), in ms."""
+    mp, cp = march[6], comp[4]
+    npl = 2 if mp.lit else 1
+    a_in, a_flops, nv = _march_work(march)
+    a_bytes = a_in + mp.N * npl * mp.RM * mp.RM * 4
+    b_bytes = (2 * canvas.numel() * canvas.element_size()
+               + nv * npl * mp.RM * mp.RM * 4
+               + mp.N * (4 + 4 + 12 * npl + 4))
+    b_flops = nv * cp.RP * cp.RP * (30 if npl == 1 else 52)
+    return {"warp_march": _bound(a_bytes, a_flops),
+            "warp_composite": _bound(b_bytes, b_flops)}
+
+
+def bounds_unfused(chunks, canvas, itemsize):
+    """Least time for one frame's launches of kernels C and D (summed
+    over the megachunks), divided by the launches: the images written by
+    C and read by D dominate; D also moves the canvas in and out."""
+    c_by = c_fl = d_by = d_fl = 0
+    for img_args, comp_args in chunks:
+        mp = img_args[6]
+        npl = 2 if mp.lit else 1
+        m_in, m_fl, nv = _march_work(img_args)
+        img_bytes = mp.N * 4 * mp.RP * mp.RP * itemsize
+        c_by += m_in + mp.N * 12 + img_bytes
+        c_fl += m_fl + nv * (npl * 4 * (mp.RP * mp.RM + mp.RP * mp.RP)
+                             + 13 * mp.RP * mp.RP)
+        d_by += (img_bytes + 2 * canvas.numel() * canvas.element_size()
+                 + mp.N * 12)
+        d_fl += mp.N * mp.RP * mp.RP * 7
+    n = len(chunks)
+    return {"warp_images": _bound(c_by / n, c_fl / n),
+            "composite_chunk": _bound(d_by / n, d_fl / n)}
+
+
+def check_image(tag, image, stats, cfg):
+    import torch
+    H, W = cfg.render.height, cfg.render.width
+    assert tuple(image.shape) == (H, W, 4), image.shape
+    assert bool(torch.isfinite(image).all()), "non-finite pixels"
+    alpha = image[..., 3]
+    a_min, a_max = float(alpha.min()), float(alpha.max())
+    cover = float((alpha > 0.01).float().mean())
+    print(f"[main] {tag} alpha in [{a_min:.4f}, {a_max:.4f}], "
+          f"{cover * 100:.1f}% of pixels above 0.01")
+    assert a_min >= 0.0 and a_max <= 1.0 + 1e-6 and a_max > 0.05
+    assert int(stats["rendered"][-1]) > 0
+
+
+def drive(tag, state, camera, light, cfg, lv, sb, n, expect):
+    """frames(n) from zeroed launch counters; the counts must equal
+    ``expect`` (per frame) times n.  Returns (state, image, counts)."""
+    import torch
+    from volq_torch.engine import loop
+    _zero_counts()
+    t0 = time.perf_counter()
+    state, image, stats = loop.frames(state, camera, light, cfg, lv, sb, n=n)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _counts()
+    print(f"[main] {tag} frames(n={n}) in {dt:.3f} s, launches {counts}, "
+          f"stats of the last frame "
+          f"{ {k: int(v[-1]) for k, v in stats.items()} }")
+    for name in NAMES:
+        want = expect.get(name, 0) * n
+        assert counts[name] == want, \
+            f"{tag}: {name} launched {counts[name]} times in {n} frames, " \
+            f"expected {want}"
+    check_image(tag, image, stats, cfg)
+    return state, image, counts
+
+
+def time_fused(tag, state, camera, light, cfg, sb, card):
+    """ms of A, B and their plain versions at the state's inputs, and
+    their bounds."""
+    from volq_torch.render import kernel as K
+    from volq_torch.render.warp import fused_inputs
+    H = cfg.render.height
+    march, comp, _ = fused_inputs(state.particles, camera, light, cfg,
+                                  sb[0], 0, H, sb[1])
+    Pm, _ = K.warp_march(*march)
+    canvas = K.canvas_init(cfg, H, Pm.device)
+    ms = {"warp_march": _cuda_ms(lambda: K.warp_march(*march), 20),
+          "warp_composite": _cuda_ms(
+              lambda: K.warp_composite(canvas, Pm, *comp), 20)}
+    plain = {"warp_march": _cuda_ms(lambda: K.warp_march_plain(*march), 3),
+             "warp_composite": _cuda_ms(
+                 lambda: K.warp_composite_plain(canvas, Pm, *comp), 1)}
+    bnd = bounds(march, comp, canvas)
+    for name in ms:
+        print(f"[timing] {tag} {name}: kernel {ms[name]:.4f} ms, plain "
+              f"{plain[name]:.3f} ms, bound {bnd[name][0]:.4f} ms "
+              f"({bnd[name][1]})  [{card}]")
+    return {name: {"ms": ms[name], "plain_ms": plain[name],
+                   "bound_ms": bnd[name][0], "bound_by": bnd[name][1]}
+            for name in ms}
+
+
+def time_unfused(tag, state, camera, light, cfg, sb, card):
+    """ms per launch of C, D and their plain versions (the mean over the
+    frame's megachunks), and their bounds."""
+    from volq_torch.render import kernel as K
+    from volq_torch.render.warp import unfused_inputs
+    H = cfg.render.height
+    chunks, _ = unfused_inputs(state.particles, camera, light, cfg, sb[0],
+                               0, H, sb[1])
+    canvas = K.canvas_init(cfg, H, sb[0].device, fused=False)
+    n = len(chunks)
+    ms = dict.fromkeys(("warp_images", "composite_chunk"), 0.0)
+    plain = dict(ms)
+    for img_args, comp_args in chunks:
+        images, _ = K.warp_images(*img_args)
+        ms["warp_images"] += _cuda_ms(
+            lambda: K.warp_images(*img_args), 10) / n
+        ms["composite_chunk"] += _cuda_ms(
+            lambda: K.composite_chunk(canvas, images, *comp_args), 10) / n
+        plain["warp_images"] += _cuda_ms(
+            lambda: K.warp_images_plain(*img_args), 2) / n
+        plain["composite_chunk"] += _cuda_ms(
+            lambda: K.composite_chunk_plain(canvas, images, *comp_args),
+            1) / n
+    bnd = bounds_unfused(chunks, canvas, sb[0].element_size())
+    for name in ms:
+        print(f"[timing] {tag} {name} (per launch, {n} per frame): kernel "
+              f"{ms[name]:.4f} ms, plain {plain[name]:.3f} ms, bound "
+              f"{bnd[name][0]:.4f} ms ({bnd[name][1]})  [{card}]")
+    return {name: {"ms": ms[name], "plain_ms": plain[name],
+                   "bound_ms": bnd[name][0], "bound_by": bnd[name][1]}
+            for name in ms}
+
+
+def time_loop(tag, prepared, cfg, card):
+    from volq_torch.engine import loop
+    band = []
+    spf, _ = loop.time_frames(cfg, 16, warmup=1, fb=N_FRAMES, windows=3,
+                              window_times=band, prepared=prepared)
+    mrays = cfg.render.width * cfg.render.height / spf / 1e6
+    print(f"[loop] {tag} time_frames: {spf * 1e3:.3f} ms/frame, "
+          f"{mrays:.2f} Mrays/s (windows "
+          f"{[round(w * 1e3, 3) for w in band]} ms/frame)  [{card}]")
 
 
 def main() -> int:
@@ -139,10 +368,10 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
     from volq_torch.engine import loop
-    from volq_torch.render import kernel as K
     from volq_torch.render._build import build_all
-    from volq_torch.render.warp import fused_inputs
-    from volq_torch.scene.config import c3
+    from volq_torch.render.warp import bake_slab_banks, render_warp
+    from volq_torch.scene.config import c3, c4
+    from volq_torch.sim.step import sim_step
 
     card = _card_line()
     print(f"[card] {card}")
@@ -152,87 +381,96 @@ def main() -> int:
 
     t = build_all(verbose=True)
     print(f"[build] kernels built in {t:.1f} s")
+    errs = dict.fromkeys(NAMES, 0.0)
 
+    # ---- c3: the unlit fused path
     cfg = c3()
     t0 = time.perf_counter()
     state, camera, light = loop.setup(cfg)
     torch.cuda.synchronize()
-    t_setup = time.perf_counter() - t0
     print(f"[setup] c3 setup (bank bake {tuple(state.volumes.shape)} "
-          f"{state.volumes.dtype} + particle init): {t_setup:.2f} s")
+          f"{state.volumes.dtype} + particle init): "
+          f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     sb = loop.cached_slab_banks(state, None, cfg)
     torch.cuda.synchronize()
-    print(f"[setup] slab banks {tuple(sb[0].shape)} {sb[0].dtype}: "
+    print(f"[setup] c3 slab banks {tuple(sb[0].shape)} {sb[0].dtype}: "
           f"{time.perf_counter() - t0:.2f} s")
+    # inputs of the first frame, for the kernel checks
+    check_fused("c3", sim_step(state, cfg), camera, light, cfg, None, errs)
+    fused = {"warp_march": 1, "warp_composite": 1}
+    state, _, c3_counts = drive("c3", state, camera, light, cfg, None, sb,
+                                N_FRAMES, fused)
+    c3_times = time_fused("c3", state, camera, light, cfg, sb, card)
+    time_loop("c3", (state, camera, light, None, sb), cfg, card)
+    del state, sb
+    torch.cuda.empty_cache()
 
-    # inputs of the first frame, for the kernel checks and timings
-    from volq_torch.sim.step import sim_step
-    st1 = sim_step(state, cfg)
-    errs = check_kernels(st1, camera, light, cfg, sb[0])
-
-    # ---- main path, counted
-    for fn in (K.warp_march, K.warp_composite):
-        fn.launches = 0
+    # ---- c4: center-lit, as shipped (fused) and with warp_fused=False
+    cfg = c4()
+    ucfg = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, warp_fused=False))
     t0 = time.perf_counter()
-    state, image, stats = loop.frames(state, camera, light, cfg, None, sb,
-                                      n=N_FRAMES)
+    state, camera, light = loop.setup(cfg)
     torch.cuda.synchronize()
-    t_frames = time.perf_counter() - t0
-    launches = {"warp_march": K.warp_march.launches,
-                "warp_composite": K.warp_composite.launches}
-    print(f"[main] frames(n={N_FRAMES}) in {t_frames:.3f} s, launches "
-          f"{launches}, stats of the last frame "
-          f"{ {k: int(v[-1]) for k, v in stats.items()} }")
-    for name, n in launches.items():
-        assert n == N_FRAMES, f"{name} launched {n} times in {N_FRAMES} " \
-                              "frames"
-    H, W = cfg.render.height, cfg.render.width
-    assert tuple(image.shape) == (H, W, 4), image.shape
-    assert bool(torch.isfinite(image).all()), "non-finite pixels"
-    alpha = image[..., 3]
-    a_min, a_max = float(alpha.min()), float(alpha.max())
-    cover = float((alpha > 0.01).float().mean())
-    print(f"[main] alpha in [{a_min:.4f}, {a_max:.4f}], "
-          f"{cover * 100:.1f}% of pixels above 0.01")
-    assert a_min >= 0.0 and a_max <= 1.0 + 1e-6 and a_max > 0.05
-    assert int(stats["rendered"][-1]) > 0
+    print(f"[setup] c4 setup (bank bake {tuple(state.volumes.shape)} "
+          f"{state.volumes.dtype} + particle init): "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    lv = loop.cached_light_volumes(state, light, cfg)
+    sb = loop.cached_slab_banks(state, lv, cfg)
+    torch.cuda.synchronize()
+    print(f"[setup] c4 light bake {tuple(lv.shape)} {lv.dtype} + slab banks "
+          f"{tuple(sb[0].shape)} x 2 {sb[0].dtype}: "
+          f"{time.perf_counter() - t0:.2f} s")
+    assert sb[1] is not None and sb[1].shape == sb[0].shape
+    st1 = sim_step(state, cfg)
+    check_fused("c4", st1, camera, light, cfg, lv, errs)
+    check_unfused("c4", st1, camera, light, ucfg, lv, errs)
+    del st1
 
-    # ---- kernel timings at the main path's inputs (last frame's state)
-    march, comp, _ = fused_inputs(state.particles, camera, light, cfg,
-                                  sb[0], 0, H)
-    P2m, _ = K.warp_march(*march)
-    canvas = K.canvas_init(cfg, H, P2m.device)
-    ms = {"warp_march": _cuda_ms(lambda: K.warp_march(*march), 20),
-          "warp_composite": _cuda_ms(
-              lambda: K.warp_composite(canvas, P2m, *comp), 20)}
-    plain_ms = {"warp_march": _cuda_ms(
-                    lambda: K.warp_march_plain(*march), 3),
-                "warp_composite": _cuda_ms(
-                    lambda: K.warp_composite_plain(canvas, P2m, *comp), 1)}
-    bnd = bounds(march, comp, canvas)
-    for name in ms:
-        print(f"[timing] {name}: kernel {ms[name]:.4f} ms, plain "
-              f"{plain_ms[name]:.3f} ms, bound {bnd[name][0]:.4f} ms "
-              f"({bnd[name][1]})  [{card}]")
+    st_f, _, c4_counts = drive("c4 fused", state, camera, light, cfg, lv,
+                               sb, N_FRAMES, fused)
+    st_u, _, u_counts = drive(
+        "c4 unfused", state, camera, light, ucfg, lv, sb, N_FRAMES_UNFUSED,
+        {"warp_images": 2, "composite_chunk": 2})
+    # one state, both paths, in c4's bf16 mode and in fp32
+    for budget, conv in ((BF16_BUDGET, lambda c: c), (FP32_BUDGET, _fp32)):
+        banks = sb if conv(cfg) is cfg else bake_slab_banks(
+            st_u.volumes, lv, conv(cfg))
+        img_f, img_u = (render_warp(st_u.particles, st_u.volumes, camera,
+                                    light, conv(c), light_volumes=lv,
+                                    slab_banks=banks)[0]
+                        for c in (cfg, ucfg))
+        d = float((img_f - img_u).abs().max())
+        print(f"[main] c4 fused vs unfused image of one state, "
+              f"{_mode(conv(cfg))}: max diff {d:.3e} (budget {budget:.3e})")
+        assert d <= budget, f"fused and unfused c4 images differ by {d}"
+    del banks, img_f, img_u
 
-    band = []
-    spf, last = loop.time_frames(cfg, 16, warmup=1, fb=N_FRAMES, windows=3,
-                                 window_times=band,
-                                 prepared=(state, camera, light, sb))
-    mrays = W * H / spf / 1e6
-    print(f"[loop] c3 time_frames: {spf * 1e3:.3f} ms/frame, "
-          f"{mrays:.2f} Mrays/s (windows "
-          f"{[round(w * 1e3, 3) for w in band]} ms/frame)  [{card}]")
+    c4_times = time_fused("c4", st_f, camera, light, cfg, sb, card)
+    c4_times.update(time_unfused("c4", st_f, camera, light, ucfg, sb, card))
+    # in turns: the host-bound loop drifts within one process
+    for tag, st, c in (("c4 fused", st_f, cfg), ("c4 unfused", st_u, ucfg),
+                       ("c4 unfused", st_u, ucfg), ("c4 fused", st_f, cfg)):
+        time_loop(tag, (st, camera, light, lv, sb), c, card)
 
-    sources = {"warp_march": "volq_torch/csrc/warp_march.cu",
-               "warp_composite": "volq_torch/csrc/warp_composite.cu"}
-    kernels = [{"name": name, "route": "cuda", "source": sources[name],
-                "replaces": "volq/render/kernel.py:175",
-                "launches": launches[name], "max_abs_err": errs[name],
-                "ms": ms[name], "plain_ms": plain_ms[name],
-                "bound_ms": bnd[name][0], "bound_by": bnd[name][1],
-                "library_ms": None} for name in sources]
+    sources = {name: f"volq_torch/csrc/{name}.cu" for name in NAMES}
+    replaces = {"warp_march": "volq/render/kernel.py:175",
+                "warp_composite": "volq/render/kernel.py:175",
+                "warp_images": "volq/render/kernel.py:2013",
+                "composite_chunk": "volq/render/kernel.py:2159"}
+    launches = dict(u_counts, warp_march=c4_counts["warp_march"],
+                    warp_composite=c4_counts["warp_composite"])
+    kernels = []
+    for name in NAMES:
+        k = {"name": name, "route": "cuda", "source": sources[name],
+             "replaces": replaces[name], "launches": launches[name],
+             "max_abs_err": errs[name], **c4_times[name],
+             "library_ms": None, "path": "c4"}
+        if name in c3_times:    # the unlit path of the same kernel
+            k["c3"] = {"launches": c3_counts[name], **c3_times[name]}
+        kernels.append(k)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

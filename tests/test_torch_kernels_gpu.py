@@ -5,8 +5,9 @@ is installed:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
 
 Without a CUDA device every case skips (the kernels have no CPU mode).
-Budgets: warp_march within 1e-5 with an equal clamp count (chip_smoke.py
-holds the same at c3 scale), warp_composite bit-equal.
+Budgets: warp_march and warp_images within 1e-5 with an equal clamp
+count, warp_composite and composite_chunk bit-equal (chip_smoke.py holds
+the same at c3 and c4 scale).
 """
 import dataclasses
 
@@ -15,7 +16,7 @@ import torch
 
 from volq_torch.engine import loop
 from volq_torch.render import kernel as K
-from volq_torch.render.warp import fused_inputs
+from volq_torch.render.warp import fused_inputs, unfused_inputs
 from volq_torch.scene.config import (SceneConfig, VolumeConfig,
                                      EmitterConfig, CameraConfig,
                                      RenderConfig)
@@ -25,7 +26,7 @@ pytestmark = pytest.mark.gpu
 EYES = {"yawed": (0.3, 0.8, -5.0), "pitched": (0.0, 1.0, -5.5)}
 
 
-def _scene(eye, fp32):
+def _scene(eye, fp32, **kw):
     return SceneConfig(
         n_particles=24, init="random", seed=11,
         volume=VolumeConfig(size=32, bank_size=6, octaves=3),
@@ -38,7 +39,8 @@ def _scene(eye, fp32):
                             warp_pallas=True, warp_rect=64,
                             warp_march_rect=48, warp_slab_vx=16,
                             warp_shift_max=6, warp_fp32=fp32,
-                            warp_canvas_fp32=fp32, density_scale=10.0))
+                            warp_canvas_fp32=fp32, density_scale=10.0,
+                            **kw))
 
 
 @pytest.mark.parametrize("fp32", [False, True], ids=["bf16", "fp32"])
@@ -61,6 +63,92 @@ def test_kernels_match_plain(view, fp32):
     assert torch.equal(out, K.warp_composite_plain(canvas.clone(), P2m,
                                                    *comp))
     assert not torch.equal(out, canvas)
+
+
+LIT = dict(light_steps=4, light_mode="center", warp_pair=1, warp_pack=4)
+
+
+def _lit_setup(view, fp32, **kw):
+    cfg = _scene(EYES[view], fp32, **LIT, **kw)
+    state, camera, light = loop.setup(cfg, device="cuda")
+    lv = loop.cached_light_volumes(state, light, cfg)
+    bank, lbank = loop.cached_slab_banks(state, lv, cfg)
+    assert lbank.shape == bank.shape
+    return cfg, state, camera, light, lv, bank, lbank
+
+
+@pytest.mark.parametrize("fp32", [False, True], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("view", sorted(EYES))
+def test_lit_kernels_match_plain(view, fp32):
+    """Kernels A and B in center-lit mode (two planes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    cfg, state, camera, light, _, bank, lbank = _lit_setup(view, fp32)
+    march, comp, _ = fused_inputs(state.particles, camera, light, cfg,
+                                  bank, 0, cfg.render.height, lbank)
+    Pm, clamp = K.warp_march(*march)
+    ref, ref_clamp = K.warp_march_plain(*march)
+    assert tuple(Pm.shape) == (24, 2, 48, 48)
+    assert float((Pm - ref).abs().max()) <= 1e-5
+    assert torch.equal(clamp, ref_clamp)
+    assert float((Pm[:, 1] - Pm[:, 0]).max()) > 0.01
+    canvas = K.canvas_init(cfg, cfg.render.height, Pm.device)
+    out = K.warp_composite(canvas.clone(), Pm, *comp)
+    assert torch.equal(out, K.warp_composite_plain(canvas.clone(), Pm,
+                                                   *comp))
+    assert not torch.equal(out, canvas)
+
+
+@pytest.mark.parametrize("fp32", [False, True], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("lit", [True, False], ids=["lit", "unlit"])
+@pytest.mark.parametrize("mega", [0, 8], ids=["one-chunk", "mega8"])
+def test_unfused_kernels_match_plain(mega, lit, fp32):
+    """Kernels C and D: one chunk composited through ``order``, and
+    depth-ordered megachunks carried on one canvas."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    if lit:
+        cfg, state, camera, light, _, bank, lbank = _lit_setup(
+            "yawed", fp32, warp_fused=False, warp_mega=mega)
+    else:
+        cfg = _scene(EYES["yawed"], fp32, warp_fused=False, warp_mega=mega)
+        state, camera, light = loop.setup(cfg, device="cuda")
+        bank, lbank = loop.cached_slab_banks(state, None, cfg)[0], None
+    chunks, _ = unfused_inputs(state.particles, camera, light, cfg, bank, 0,
+                               cfg.render.height, lbank)
+    assert len(chunks) == (3 if mega else 1)
+    canvas_k = K.canvas_init(cfg, cfg.render.height, "cuda", fused=False)
+    canvas_p = canvas_k.clone()
+    for img_args, comp_args in chunks:
+        images, clamp = K.warp_images(*img_args)
+        ref, ref_clamp = K.warp_images_plain(*img_args)
+        assert images.dtype == bank.dtype
+        assert float((images.float() - ref.float()).abs().max()) <= 1e-5
+        assert torch.equal(clamp, ref_clamp)
+        canvas_k = K.composite_chunk(canvas_k, images, *comp_args)
+        canvas_p = K.composite_chunk_plain(canvas_p, images, *comp_args)
+        assert torch.equal(canvas_k, canvas_p)
+    assert float(canvas_k[:3].float().max()) > 0.0
+
+
+def test_unfused_frames_count_launches_and_match_fused():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    cfg, state, camera, light, lv, bank, lbank = _lit_setup(
+        "pitched", False, warp_fused=False, warp_mega=8)
+    fns = (K.warp_march, K.warp_composite, K.warp_images, K.composite_chunk)
+    n0 = [fn.launches for fn in fns]
+    _, img_u, stats = loop.frames(state, camera, light, cfg, lv,
+                                  (bank, lbank), n=2)
+    assert [fn.launches - n for fn, n in zip(fns, n0)] == [0, 0, 6, 6]
+    fcfg = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, warp_fused=True))
+    _, img_f, _ = loop.frames(state, camera, light, fcfg, lv, (bank, lbank),
+                              n=2)
+    assert [fn.launches - n for fn, n in zip(fns, n0)] == [2, 2, 6, 6]
+    assert bool(torch.isfinite(img_u).all())
+    assert float((img_u - img_f).abs().max()) <= 4 / 256
+    assert int(stats["rendered"][-1]) > 0
 
 
 def test_frames_count_one_launch_each_per_frame():

@@ -1,7 +1,8 @@
-"""volq_torch.engine: the slice as a whole -- setup, cached slab banks,
-then frames(n=3) of a tiny emitting, curl-forced scene with c3's sim and
-render flags -- against volq.engine.loop.frames, plus the loop's own
-contracts (frames == repeated frame, the card by default)."""
+"""volq_torch.engine: the slice as a whole -- setup, cached light bank
+and slab banks, then frames(n=3) of a tiny emitting, curl-forced scene
+with c3's and with c4's sim and render flags -- against
+volq.engine.loop.frames, plus the loop's own contracts (frames ==
+repeated frame, the card by default)."""
 import dataclasses
 
 import jax
@@ -29,6 +30,18 @@ def _tiny_c3():
             c.render, width=128, height=64, tile_w=32, warp_rect=48,
             warp_march_rect=32, warp_slab_vx=8, near_fade_start=0.0,
             near_fade_end=0.0))
+
+
+def _tiny_c4(**kw):
+    c = JC.c4()
+    return dataclasses.replace(
+        c, n_particles=16,
+        volume=JC.VolumeConfig(size=16, bank_size=3, octaves=2,
+                               noise_scale=5.0),
+        render=dataclasses.replace(
+            c.render, width=128, height=64, tile_w=32, warp_rect=48,
+            warp_march_rect=32, warp_slab_vx=8, warp_mega=8,
+            near_fade_start=0.0, near_fade_end=0.0, **kw))
 
 
 def _port(cfg):
@@ -61,6 +74,39 @@ def test_frames_match_reference():
     assert np.abs(timg.numpy() - img).max() <= BF16_TOL
     for k, v in tstats.items():
         np.testing.assert_array_equal(np.asarray(stats[k]), v.numpy())
+
+
+@pytest.mark.filterwarnings("ignore:warp_pair=1 requested")
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_c4_frames_match_reference(fused):
+    """c4's flags (center-lit, paired, packed, megachunks of 8) through
+    cached_light_volumes / cached_slab_banks / frames(n=3)."""
+    cfg = _tiny_c4(warp_fused=fused)
+    s, cam, li = JL.setup(cfg)
+    lv = JL.cached_light_volumes(s, li, cfg)
+    sb = JL.cached_slab_banks(s, lv, cfg)
+    s, img, stats = JL.frames(s, cam, li, cfg, lv, sb, n=3)
+    tcfg = _port(cfg)
+    ts, tcam, tli = TL.setup(tcfg, device="cpu")
+    tlv = TL.cached_light_volumes(ts, tli, tcfg)
+    assert np.abs(tlv.numpy() - np.asarray(lv)).max() <= 1e-5
+    tsb = TL.cached_slab_banks(ts, tlv, tcfg)
+    assert tsb[1].shape == tsb[0].shape and tsb[1].dtype == tsb[0].dtype
+    ts, timg, tstats = TL.frames(ts, tcam, tli, tcfg, tlv, tsb, n=3)
+    img = np.asarray(img)
+    assert timg.shape == img.shape and img[..., 3].max() > 0.05
+    assert np.abs(timg.numpy() - img).max() <= BF16_TOL
+    assert set(tstats) == {"alive", "rendered", "straddled",
+                           "rect_overflow", "shift_clamped"}
+    for k, v in tstats.items():
+        np.testing.assert_array_equal(np.asarray(stats[k]), v.numpy())
+    # without the cached banks the frame bakes both itself: same image
+    ts0, _, _ = TL.setup(tcfg, device="cpu")
+    _, img_a, _ = TL.frame(ts0, tcam, tli, tcfg)
+    _, img_b, _ = TL.frame(ts0, tcam, tli, tcfg, tlv, tsb)
+    assert torch.equal(img_a, img_b)
+    # an unlit scene needs no light bank
+    assert TL.cached_light_volumes(ts0, tli, _port(_tiny_c3())) is None
 
 
 def test_frames_equal_repeated_frame():
@@ -103,7 +149,14 @@ def test_run_and_time_frames_on_cpu():
     state, camera, light = TL.setup(cfg, device="cpu")
     sb = TL.cached_slab_banks(state, None, cfg)
     dt, last = TL.time_frames(cfg, 1, warmup=0, fb=1, windows=1,
-                              prepared=(state, camera, light, sb))
+                              prepared=(state, camera, light, None, sb))
+    assert dt > 0 and last["alive"] > 0
+    # c4's lit, unfused mode through run and time_frames
+    c4 = _port(_tiny_c4(warp_fused=False))
+    _, images, stats = TL.run(c4, 1, device="cpu")
+    assert images[0].shape == (64, 128, 4) and stats[-1]["rendered"] > 0
+    dt, last = TL.time_frames(c4, 1, warmup=0, fb=1, windows=1,
+                              device="cpu")
     assert dt > 0 and last["alive"] > 0
     with pytest.raises(NotImplementedError):
         TL.time_frames(cfg, 1, mesh=2, device="cpu")

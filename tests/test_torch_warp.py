@@ -147,9 +147,7 @@ def test_grid_geometry_matches(tiny_cfg, view):
 UNSUPPORTED = [
     dict(engine="exact"),
     dict(warp_pallas=False),
-    dict(warp_fused=False),
-    dict(light_steps=4),
-    dict(warp_pair=1),
+    dict(light_steps=4, light_mode="march"),
     dict(warp_coarse=1),
     dict(warp_canvas_scale=0.8),
     dict(warp_interleave=1),

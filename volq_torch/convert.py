@@ -57,6 +57,13 @@ def state_to_numpy(state: SceneState) -> SceneState:
         base_key=_to_numpy(state.base_key).astype(np.uint32))
 
 
+def light_volumes_from_numpy(lv, device="cpu") -> torch.Tensor:
+    """The baked light optical-depth bank [M, V, V, V] (what
+    ``volq.volume.lightbake.bake_light_volumes`` returns, as numpy) ->
+    the port's fp32 tensor, so both packages can render from one bake."""
+    return _to_torch(np.asarray(lv, np.float32), device)
+
+
 def camera_from_numpy(c, device="cpu") -> Camera:
     return Camera(*(_to_torch(np.asarray(getattr(c, f), np.float32), device)
                     for f in Camera._fields))

@@ -1,12 +1,18 @@
 // warp_composite: the composite half of the fused warp kernel, for Hopper
 // (sm_90a).
 //
-// Replaces: volq/render/kernel.py:march_warp_pallas (fused mode, unlit,
-// unpaired) -- its epilogue's placement and canvas read-modify-write: the
-// hat upsample of each particle's march-resolution P2 plane straight into
+// Replaces: volq/render/kernel.py:march_warp_pallas (fused mode, unlit or
+// center-lit) -- its epilogue's placement and canvas read-modify-write: the
+// hat upsample of each particle's march-resolution plane(s) straight into
 // canvas coordinates (Uyp, rounded to the working type, then Uxp) and the
-// front-to-back OVER  T2 = Tw*P2; C_ch += cc_ch*T2; T = Tw - T2, rounded to
-// the canvas type after every particle, in depth order.
+// front-to-back OVER, rounded to the canvas type after every particle, in
+// depth order.  Unlit (one plane P2, colour folded to cc = alb*(lcol+amb)):
+//   T2 = Tw*P2;  C_ch += cc_ch*T2;  T = Tw - T2.
+// Center-lit (planes P1, P2; cc = alb*lcol, cc2 = alb*amb):
+//   T2 = Tw*P2;  T1 = Tw*P1;  C_ch += cc_ch*T1 + cc2_ch*T2;  T = Tw - T2.
+// The reference's pair reorder (warp_pair) only swaps depth-adjacent
+// particles whose canvas windows are disjoint, so no pixel's order changes
+// and the per-pixel depth walk here needs no reorder.
 //
 // Design.  The TPU ran one sequential grid over the depth-ordered particles
 // and carried each particle's canvas window through double-buffered DMAs
@@ -29,57 +35,23 @@
 // __fmul_rn / __fadd_rn as well, so the canvas is bit-equal to the plain
 // PyTorch version.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "warp_common.cuh"
 
 struct CompositeParams {
-  int N, RM, RP, Hc, Wc;
+  int N, RM, RP, Hc, Wc, lit;
   float ratio_m;   // f32(RM - 1) / f32(RP - 1)
 };
-
-template <typename T> __device__ __forceinline__ float ldf(const T* p);
-template <> __device__ __forceinline__ float ldf<float>(const float* p) {
-  return *p;
-}
-template <> __device__ __forceinline__ float ldf<__nv_bfloat16>(
-    const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-template <typename T> __device__ __forceinline__ float rnd(float x);
-template <> __device__ __forceinline__ float rnd<float>(float x) { return x; }
-template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-template <typename T> __device__ __forceinline__ T cvt(float x);
-template <> __device__ __forceinline__ float cvt<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 cvt<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// the two hat taps of position g on [0, n): floor(g) and floor(g) + 1
-template <typename PT>
-__device__ __forceinline__ void taps(float g, int n, int* k0, float* w0,
-                                     float* w1) {
-  const int k = (int)floorf(g);
-  *k0 = k;
-  *w0 = (k >= 0 && k < n) ? rnd<PT>(fmaxf(0.f, 1.f - fabsf(g - (float)k)))
-                          : 0.f;
-  *w1 = (k + 1 >= 0 && k + 1 < n)
-            ? rnd<PT>(fmaxf(0.f, 1.f - fabsf(g - (float)(k + 1))))
-            : 0.f;
-}
 
 constexpr int kTileW = 64, kTileH = 16, kRowsPerThread = 4;
 constexpr int kChunk = 1024;
 
-template <typename CT, typename PT>
+template <typename CT, typename PT, bool LIT>
 __global__ void __launch_bounds__(kTileW * (kTileH / kRowsPerThread))
-warp_composite_kernel(CT* __restrict__ canvas, const float* __restrict__ p2m,
+warp_composite_kernel(CT* __restrict__ canvas, const float* __restrict__ pm,
                       const float* __restrict__ ayf,
                       const float* __restrict__ axf,
                       const float* __restrict__ cc,
+                      const float* __restrict__ cc2,
                       const int* __restrict__ valid, CompositeParams p) {
   __shared__ int list[kChunk];
   __shared__ int list_n;
@@ -102,7 +74,7 @@ warp_composite_kernel(CT* __restrict__ canvas, const float* __restrict__ p2m,
     T[r] = in ? ldf<CT>(canvas + 3 * plane + o) : 1.f;
   }
 
-  const int RP = p.RP, RM = p.RM;
+  const int RP = p.RP, RM = p.RM, RR = RM * RM;
   const int lane = threadIdx.x & 31;
   const bool warp0 = ty == 0 && tx < 32;
   for (int base = 0; base < p.N; base += kChunk) {
@@ -131,11 +103,18 @@ warp_composite_kernel(CT* __restrict__ canvas, const float* __restrict__ p2m,
       const int xo = X - x0;
       if (!colin || xo < 0 || xo >= RP) continue;
       const int y0 = (int)ayf[k];
-      const float* P = p2m + (size_t)k * RM * RM;
+      // planes of particle k: [P2] unlit, [P1, P2] center-lit
+      const float* P2p = pm + ((size_t)k * (LIT ? 2 : 1) + (LIT ? 1 : 0)) * RR;
+      const float* P1p = pm + (size_t)k * (LIT ? 2 : 1) * RR;
       int m0;
       float wx0, wx1;
       taps<PT>((float)xo * p.ratio_m, RM, &m0, &wx0, &wx1);
-      const float cc0 = cc[3 * k], cc1 = cc[3 * k + 1], cc2 = cc[3 * k + 2];
+      float ca[3], cb[3];
+      #pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        ca[ch] = cc[3 * k + ch];
+        cb[ch] = LIT ? cc2[3 * k + ch] : 0.f;
+      }
       #pragma unroll
       for (int r = 0; r < kRowsPerThread; ++r) {
         const int yo = Ybase + r - y0;
@@ -143,26 +122,28 @@ warp_composite_kernel(CT* __restrict__ canvas, const float* __restrict__ p2m,
         int k0;
         float wy0, wy1;
         taps<PT>((float)yo * p.ratio_m, RM, &k0, &wy0, &wy1);
-        // t[m] = rnd(wy0 * P[k0, m] + wy1 * P[k0+1, m]) for m = m0, m0+1
-        float t[2];
-        #pragma unroll
-        for (int dm = 0; dm < 2; ++dm) {
-          const int m = m0 + dm;    // m0, k0 >= 0: xo, yo >= 0
-          float s = 0.f;
-          if (m < RM) {
-            if (k0 < RM) s = __fmul_rn(wy0, rnd<PT>(P[k0 * RM + m]));
-            if (k0 + 1 < RM)
-              s = __fadd_rn(s, __fmul_rn(wy1, rnd<PT>(P[(k0 + 1) * RM + m])));
-          }
-          t[dm] = rnd<PT>(s);
-        }
-        const float placed = __fadd_rn(__fmul_rn(t[0], wx0),
-                                       __fmul_rn(t[1], wx1));
+        // placed = sum_m rnd(wy0*P[k0, m] + wy1*P[k0+1, m]) * wx_m over
+        // m = m0, m0 + 1  (m0, k0 >= 0: xo, yo >= 0)
+        const float placed2 = __fadd_rn(
+            __fmul_rn(up_y<PT>(P2p, RM, k0, wy0, wy1, m0), wx0),
+            __fmul_rn(up_y<PT>(P2p, RM, k0, wy0, wy1, m0 + 1), wx1));
         const float Tw = T[r];
-        const float T2 = __fmul_rn(Tw, placed);
-        C[r][0] = rnd<CT>(__fadd_rn(C[r][0], __fmul_rn(cc0, T2)));
-        C[r][1] = rnd<CT>(__fadd_rn(C[r][1], __fmul_rn(cc1, T2)));
-        C[r][2] = rnd<CT>(__fadd_rn(C[r][2], __fmul_rn(cc2, T2)));
+        const float T2 = __fmul_rn(Tw, placed2);
+        if (LIT) {
+          const float placed1 = __fadd_rn(
+              __fmul_rn(up_y<PT>(P1p, RM, k0, wy0, wy1, m0), wx0),
+              __fmul_rn(up_y<PT>(P1p, RM, k0, wy0, wy1, m0 + 1), wx1));
+          const float T1 = __fmul_rn(Tw, placed1);
+          #pragma unroll
+          for (int ch = 0; ch < 3; ++ch)
+            C[r][ch] = rnd<CT>(__fadd_rn(
+                C[r][ch], __fadd_rn(__fmul_rn(ca[ch], T1),
+                                    __fmul_rn(cb[ch], T2))));
+        } else {
+          #pragma unroll
+          for (int ch = 0; ch < 3; ++ch)
+            C[r][ch] = rnd<CT>(__fadd_rn(C[r][ch], __fmul_rn(ca[ch], T2)));
+        }
         T[r] = rnd<CT>(__fsub_rn(Tw, T2));
       }
     }
@@ -180,30 +161,43 @@ warp_composite_kernel(CT* __restrict__ canvas, const float* __restrict__ p2m,
   }
 }
 
-template <typename CT>
-static void launch_c(void* canvas, const float* p2m, int place_bf16,
-                     const float* ayf, const float* axf, const float* cc,
+template <typename CT, typename PT>
+static void launch_p(void* canvas, const float* pm, const float* ayf,
+                     const float* axf, const float* cc, const float* cc2,
                      const int* valid, CompositeParams p, cudaStream_t st) {
   dim3 block(kTileW, kTileH / kRowsPerThread);
   dim3 grid((p.Wc + kTileW - 1) / kTileW, (p.Hc + kTileH - 1) / kTileH);
-  if (place_bf16)
-    warp_composite_kernel<CT, __nv_bfloat16><<<grid, block, 0, st>>>(
-        (CT*)canvas, p2m, ayf, axf, cc, valid, p);
+  if (p.lit)
+    warp_composite_kernel<CT, PT, true><<<grid, block, 0, st>>>(
+        (CT*)canvas, pm, ayf, axf, cc, cc2, valid, p);
   else
-    warp_composite_kernel<CT, float><<<grid, block, 0, st>>>(
-        (CT*)canvas, p2m, ayf, axf, cc, valid, p);
+    warp_composite_kernel<CT, PT, false><<<grid, block, 0, st>>>(
+        (CT*)canvas, pm, ayf, axf, cc, nullptr, valid, p);
+}
+
+template <typename CT>
+static void launch_c(void* canvas, const float* pm, int place_bf16,
+                     const float* ayf, const float* axf, const float* cc,
+                     const float* cc2, const int* valid, CompositeParams p,
+                     cudaStream_t st) {
+  if (place_bf16)
+    launch_p<CT, __nv_bfloat16>(canvas, pm, ayf, axf, cc, cc2, valid, p, st);
+  else
+    launch_p<CT, float>(canvas, pm, ayf, axf, cc, cc2, valid, p, st);
 }
 
 extern "C" int warp_composite_launch(void* canvas, int canvas_bf16,
-                                     const float* p2m, int place_bf16,
+                                     const float* pm, int place_bf16,
                                      const float* ayf, const float* axf,
-                                     const float* cc, const int* valid,
-                                     CompositeParams p, void* stream) {
+                                     const float* cc, const float* cc2,
+                                     const int* valid, CompositeParams p,
+                                     void* stream) {
+  if (p.lit && !cc2) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (canvas_bf16)
-    launch_c<__nv_bfloat16>(canvas, p2m, place_bf16, ayf, axf, cc, valid, p,
-                            st);
+    launch_c<__nv_bfloat16>(canvas, pm, place_bf16, ayf, axf, cc, cc2, valid,
+                            p, st);
   else
-    launch_c<float>(canvas, p2m, place_bf16, ayf, axf, cc, valid, p, st);
+    launch_c<float>(canvas, pm, place_bf16, ayf, axf, cc, cc2, valid, p, st);
   return (int)cudaGetLastError();
 }

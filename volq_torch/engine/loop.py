@@ -18,11 +18,23 @@ from volq_torch.render.warp import bake_slab_banks, check_supported
 from volq_torch.scene.config import SceneConfig
 from volq_torch.scene.state import init_scene, build_camera, build_light
 from volq_torch.sim.step import sim_step
+from volq_torch.volume.lightbake import bake_light_volumes, dominant_axis
+
+
+def _light_volumes(state: SceneState, light, cfg: SceneConfig):
+    """The baked light optical depth of the state's volumes for the lit
+    modes (``light_steps > 0``), else None."""
+    if cfg.render.engine in ("slab", "warp") and cfg.render.light_steps > 0:
+        return bake_light_volumes(state.volumes, light.direction,
+                                  axis=dominant_axis(cfg.light.direction))
+    return None
 
 
 def _frame_body(state: SceneState, camera, light, cfg: SceneConfig,
                 light_volumes=None, slab_banks=None):
     state = sim_step(state, cfg)
+    if light_volumes is None:
+        light_volumes = _light_volumes(state, light, cfg)
     image, stats = render_frame(state.particles, state.volumes, camera,
                                 light, cfg, light_volumes=light_volumes,
                                 slab_banks=slab_banks)
@@ -32,8 +44,9 @@ def _frame_body(state: SceneState, camera, light, cfg: SceneConfig,
 def frame(state: SceneState, camera, light, cfg: SceneConfig,
           light_volumes=None, slab_banks=None):
     """Advance one frame.  Returns (new_state, image [H, W, 4], stats).
-    Pass ``slab_banks`` from ``cached_slab_banks`` to skip the per-frame
-    bake (static scenes)."""
+    Pass ``light_volumes`` from ``cached_light_volumes`` and
+    ``slab_banks`` from ``cached_slab_banks`` to skip the per-frame bakes
+    (static scenes); None re-bakes inside the frame."""
     return _frame_body(state, camera, light, cfg, light_volumes, slab_banks)
 
 
@@ -52,9 +65,19 @@ def frames(state: SceneState, camera, light, cfg: SceneConfig,
                           for k in per[0]}
 
 
+def cached_light_volumes(state: SceneState, light, cfg: SceneConfig):
+    """Bake the light optical-depth bank once for a static scene (the
+    volumes and the light direction never change between frames), or
+    None when no bake is needed."""
+    if cfg.volume.animated:
+        return None
+    return _light_volumes(state, light, cfg)
+
+
 def cached_slab_banks(state: SceneState, light_volumes, cfg: SceneConfig):
     """Bake the warp engine's marching slab banks once for a static
-    scene (they change only with the volumes)."""
+    scene (they change only with the volumes): (density, light or None
+    when ``light_volumes`` is None or the scene is unlit)."""
     return bake_slab_banks(state.volumes, light_volumes, cfg)
 
 
@@ -78,10 +101,11 @@ def run(cfg: SceneConfig, n_frames: int, *, warmup: int = 0,
     state, camera, light = setup(cfg, device)
     for _ in range(warmup):
         state = sim_step(state, cfg)
-    sb = cached_slab_banks(state, None, cfg)
+    lv = cached_light_volumes(state, light, cfg)
+    sb = cached_slab_banks(state, lv, cfg)
     images, all_stats = [], []
     for i in range(n_frames):
-        state, image, stats = frame(state, camera, light, cfg, None, sb)
+        state, image, stats = frame(state, camera, light, cfg, lv, sb)
         if fetch_images:
             images.append(image.cpu().numpy())
         host_stats = {k: int(v) for k, v in stats.items()}
@@ -100,22 +124,23 @@ def time_frames(cfg: SceneConfig, n_frames: int, *, warmup: int = 2,
     events (on the CPU, by the host clock), the median window returned.
     Returns (seconds_per_frame, host stats of the last frame);
     ``window_times`` receives each window's seconds per frame.
-    ``prepared`` = (state, camera, light, slab_banks) from ``setup`` and
-    ``cached_slab_banks`` skips both (and ``device``): the bank is not
-    baked again."""
+    ``prepared`` = (state, camera, light, light_volumes, slab_banks)
+    from ``setup``, ``cached_light_volumes`` and ``cached_slab_banks``
+    skips all three (and ``device``): nothing is baked again."""
     if mesh:
         raise NotImplementedError("the sharded loop is not ported yet "
                                   "(ROADMAP Queue 1 item 12)")
     if prepared is None:
         state, camera, light = setup(cfg, device)
-        sb = cached_slab_banks(state, None, cfg)
+        lv = cached_light_volumes(state, light, cfg)
+        sb = cached_slab_banks(state, lv, cfg)
     else:
         check_supported(cfg)
-        state, camera, light, sb = prepared
+        state, camera, light, lv, sb = prepared
     cuda = state.volumes.device.type == "cuda"
 
     def step(st):
-        return frames(st, camera, light, cfg, None, sb, n=fb)
+        return frames(st, camera, light, cfg, lv, sb, n=fb)
 
     for _ in range(1 + warmup):
         state, image, stats = step(state)

@@ -1,18 +1,21 @@
 """Where a frame's time goes, on the card.
 
-    python -m volq_torch.profile [--preset c3] [--frames 4]
+    python -m volq_torch.profile [--preset c3|c4] [--unfused] [--frames 4]
 
-Sets the preset up at full size, then prints (with the card's name and
-power limit): the wall milliseconds per frame of each phase, timed alone
-between device synchronizations -- the sim step, the render's host-side
-preparation (geometry, depth sort, kernel inputs), each kernel, the
-canvas init and finish -- and, from a torch.profiler trace of whole
-frames, the device-busy share of the frame and the number of device
-kernels launched per frame.  Needs a CUDA device.
+Sets the preset up at full size (``--unfused``: with warp_fused=False),
+then prints (with the card's name and power limit): the wall
+milliseconds per frame of each phase, timed alone between device
+synchronizations -- the sim step, the render's host-side preparation
+(geometry, depth sort, kernel inputs), each kernel (the unfused pair
+summed over the frame's megachunks), the canvas init and finish -- and,
+from a torch.profiler trace of whole frames, the device-busy share of
+the frame and the number of device kernels launched per frame.  Needs a
+CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import time
 
@@ -32,12 +35,15 @@ def _wall_ms(fn, reps: int) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", default="c3")
+    ap.add_argument("--unfused", action="store_true",
+                    help="run the preset with warp_fused=False")
     ap.add_argument("--frames", type=int, default=4)
     args = ap.parse_args(argv)
 
     from volq_torch.engine import loop
     from volq_torch.render import kernel as K
-    from volq_torch.render.warp import fused_inputs, _canvas_finish
+    from volq_torch.render.warp import (fused_inputs, unfused_inputs,
+                                        _canvas_finish)
     from volq_torch.scene.config import PRESETS
     from volq_torch.sim import prng
     from volq_torch.sim.emit import spawn_attrs
@@ -49,17 +55,42 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = PRESETS[args.preset]()
+    fused = not args.unfused
+    if not fused:
+        cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+            cfg.render, warp_fused=False))
     H = cfg.render.height
     state, camera, light = loop.setup(cfg)
-    sb = loop.cached_slab_banks(state, None, cfg)
+    lv = loop.cached_light_volumes(state, light, cfg)
+    sb = loop.cached_slab_banks(state, lv, cfg)
     for _ in range(2):
-        state, _, _ = loop.frame(state, camera, light, cfg, None, sb)
+        state, _, _ = loop.frame(state, camera, light, cfg, lv, sb)
     dev = state.volumes.device
+    inputs = fused_inputs if fused else unfused_inputs
 
-    march, comp, _ = fused_inputs(state.particles, camera, light, cfg,
-                                  sb[0], 0, H)
-    P2m, _ = K.warp_march(*march)
-    canvas = K.canvas_init(cfg, H, dev)
+    def prep():
+        return inputs(state.particles, camera, light, cfg, sb[0], 0, H,
+                      sb[1])
+
+    canvas = K.canvas_init(cfg, H, dev, fused=fused)
+    if fused:
+        march, comp, _ = prep()
+        Pm, _ = K.warp_march(*march)
+        kernels = {
+            "warp_march kernel": lambda: K.warp_march(*march),
+            "warp_composite kernel":
+                lambda: K.warp_composite(canvas, Pm, *comp),
+        }
+    else:
+        chunks, _ = prep()
+        images = [K.warp_images(*a)[0] for a, _ in chunks]
+        kernels = {
+            f"warp_images kernel x{len(chunks)}":
+                lambda: [K.warp_images(*a) for a, _ in chunks],
+            f"composite_chunk kernel x{len(chunks)}":
+                lambda: [K.composite_chunk(canvas, im, *c)
+                         for im, (_, c) in zip(images, chunks)],
+        }
     reps = 10
     p = state.particles
     key = prng.fold_in(state.base_key, state.frame)
@@ -72,17 +103,14 @@ def main(argv=None) -> int:
         "  of which total_force (curl noise)": _wall_ms(
             lambda: total_force(p.pos, p.vel, state.time, cfg.forces),
             reps),
-        "render host prep (fused_inputs)": _wall_ms(
-            lambda: fused_inputs(state.particles, camera, light, cfg, sb[0],
-                                 0, H), reps),
-        "warp_march kernel": _wall_ms(lambda: K.warp_march(*march), reps),
-        "canvas_init": _wall_ms(lambda: K.canvas_init(cfg, H, dev), reps),
-        "warp_composite kernel": _wall_ms(
-            lambda: K.warp_composite(canvas, P2m, *comp), reps),
+        f"render host prep ({inputs.__name__})": _wall_ms(prep, reps),
+        "canvas_init": _wall_ms(
+            lambda: K.canvas_init(cfg, H, dev, fused=fused), reps),
+        **{name: _wall_ms(fn, reps) for name, fn in kernels.items()},
         "canvas finish": _wall_ms(
             lambda: _canvas_finish(canvas[:3], canvas[3], cfg, H), reps),
     }
-    frame_ms = _wall_ms(lambda: loop.frame(state, camera, light, cfg, None,
+    frame_ms = _wall_ms(lambda: loop.frame(state, camera, light, cfg, lv,
                                            sb), reps)
 
     from torch.profiler import profile, ProfilerActivity
@@ -92,7 +120,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         st = state
         for _ in range(args.frames):
-            st, _, _ = loop.frame(st, camera, light, cfg, None, sb)
+            st, _, _ = loop.frame(st, camera, light, cfg, lv, sb)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev_events = [e for e in prof.events()
@@ -102,7 +130,7 @@ def main(argv=None) -> int:
     top = sorted(prof.key_averages(), key=lambda a: -getattr(
         a, "self_device_time_total", getattr(a, "self_cuda_time_total", 0)))
 
-    print(f"[profile] {args.preset} on {card}")
+    print(f"[profile] {args.preset}{'' if fused else ' unfused'} on {card}")
     print(f"[profile] frame (sim + render), timed alone: {frame_ms:.3f} ms")
     for name, ms in phases.items():
         print(f"[profile]   {name}: {ms:.3f} ms")

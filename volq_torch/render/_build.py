@@ -2,8 +2,9 @@
 
 Each source is compiled at first use with ``nvcc`` into a shared library
 with a plain C interface under ``build/volq_torch/`` at the repository
-root, named by the source's content hash (an edited source rebuilds),
-and loaded with ``ctypes``.  ``build_all`` starts one ``nvcc`` per
+root, named by the content hash of the source and of every file under
+``csrc/`` it includes (an edited source or header rebuilds), and loaded
+with ``ctypes``.  ``build_all`` starts one ``nvcc`` per
 source at once.  Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -19,7 +21,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "volq_torch"
-SOURCES = ("warp_march", "warp_composite")
+SOURCES = ("warp_march", "warp_composite", "warp_images",
+           "composite_chunk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -34,9 +37,26 @@ def _nvcc() -> str:
                        "volq_torch's kernels)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _with_includes(path: Path, seen: dict) -> dict:
+    """``path`` and, recursively, every file under csrc/ it includes by
+    ``#include "..."`` -> their bytes, in first-seen order."""
+    if path not in seen:
+        seen[path] = path.read_bytes()
+        for inc in _INCLUDE.findall(seen[path]):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.is_file() and CSRC in dep.parents:
+                _with_includes(dep, seen)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path, data in _with_includes(CSRC / f"{name}.cu", {}).items():
+        h.update(path.name.encode() + b"\0" + data)
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,22 +1,34 @@
 """The warp engine's kernels (counterpart of ``volq/render/kernel.py``).
 
-The TPU's fused ``march_warp_pallas`` (unlit, unpaired, slab banks) is
-split where its work stops being per-particle:
+The TPU's fused ``march_warp_pallas`` (unlit or center-lit, slab banks)
+is split where its work stops being per-particle:
 
 * ``warp_march`` (kernel A, ``csrc/warp_march.cu``): per depth-ordered
-  particle, the telescoped march over its slab stack, the fan shift at
-  march resolution and P2 = 1 - exp(-q) -> P2m [N, RM, RM] fp32 plus the
-  shift-clamp count;
+  particle, the telescoped march over its slab stack, center-lit one
+  more sample of the light slab at step S // 2, the fan shift at march
+  resolution and the exps -> P2m [N, RM, RM] (unlit) or (P1m, P2m)
+  [N, 2, RM, RM] (lit), fp32, plus the shift-clamp count;
 * ``warp_composite`` (kernel B, ``csrc/warp_composite.cu``): per canvas
-  tile, the hat upsample of each covering particle's P2m into canvas
-  coordinates and the OVER read-modify-write, in depth order.
+  tile, the hat upsample of each covering particle's plane(s) into
+  canvas coordinates and the OVER read-modify-write, in depth order.
+
+The unfused pair (``warp_fused=False``):
+
+* ``warp_images`` (kernel C, ``csrc/warp_images.cu``): the unfused
+  ``march_warp_pallas`` -- A's march, fan and exps, then the RM -> RP hat
+  upsample and the RGB expansion into images [N, 4, RP, RP] in the
+  working type;
+* ``composite_chunk`` (kernel D, ``csrc/composite_chunk.cu``):
+  ``composite_chunk_pallas`` -- OVER of one depth-ordered chunk of those
+  images onto the legacy canvas.
 
 Each wrapper launches its CUDA kernel for tensors on the card (raising
 if it cannot) and runs its plain PyTorch version, ``*_plain``, only for
 tensors on the CPU.  The plain versions repeat the kernels' arithmetic
 op for op (same rounding points, same fp32 operation order), so on the
-card kernel B is bit-equal to its plain version and kernel A equal to
-fp32 rounding.  ``launches`` on each wrapper counts kernel launches.
+card kernels B and D are bit-equal to their plain versions and kernels
+A and C equal to fp32 rounding.  ``launches`` on each wrapper counts
+kernel launches.
 """
 from __future__ import annotations
 
@@ -63,12 +75,31 @@ def canvas_geom(cfg: SceneConfig, h_local: int) -> CanvasGeom:
                       Wc=r.width + RP + WW, pad=RP)
 
 
-def canvas_init(cfg: SceneConfig, h_local: int, device) -> torch.Tensor:
+def _canvas_dims(cfg: SceneConfig, h_local: int):
+    """(WH, WW, Hc, Wc) of the legacy pixel-plane canvas the unfused
+    composite uses.  WH / WW are the TPU window dims; they size the
+    padding and the clip of the image origins.  For the pixel canvas
+    the dims equal ``canvas_geom``'s."""
+    r = cfg.render
+    RP = r.warp_rect
+    WH = RP + 8
+    WW = -(-(RP + 128) // 128) * 128
+    return WH, WW, h_local + RP + WH, r.width + RP + WW
+
+
+def canvas_init(cfg: SceneConfig, h_local: int, device,
+                fused: bool = True) -> torch.Tensor:
     """Padded canvas [4, Hc, Wc]: C = 0, T = 1, bf16 unless
-    warp_canvas_fp32 (plain torch; the TPU version was no kernel)."""
-    g = canvas_geom(cfg, h_local)
+    warp_canvas_fp32 (plain torch; the TPU version was no kernel).
+    ``fused`` picks the layout of the composite that will consume it:
+    ``canvas_geom``'s or the unfused path's legacy dims."""
+    if fused:
+        g = canvas_geom(cfg, h_local)
+        Hc, Wc = g.Hc, g.Wc
+    else:
+        _, _, Hc, Wc = _canvas_dims(cfg, h_local)
     cdt = torch.float32 if cfg.render.warp_canvas_fp32 else torch.bfloat16
-    c = torch.zeros((4, g.Hc, g.Wc), dtype=cdt, device=device)
+    c = torch.zeros((4, Hc, Wc), dtype=cdt, device=device)
     c[3] = 1
     return c
 
@@ -88,34 +119,44 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """Device pointer of ``t`` (NULL for an absent optional input)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 # --------------------------------------------------------------------------
 # kernel A: warp_march
 
 class MarchParams(ctypes.Structure):
-    """Scalar parameters of warp_march (mirrors ``MarchParams`` in
-    csrc/warp_march.cu).  The float fields are fp32 roundings of the
+    """Scalar parameters of the march kernels A and C (mirrors
+    ``MarchParams`` in csrc/warp_common.cuh).  ``lit``: center-lit (one
+    light sample at step ``mid``); ``RP`` / ``ratio_m``: the rect kernel
+    C upsamples to.  The float fields are fp32 roundings of the
     reference's Python-double constants."""
     _fields_ = [(n, ctypes.c_int) for n in
-                ("N", "S", "VX", "V", "RM", "row_fan")] + \
-               [(n, ctypes.c_float) for n in
-                ("gsc", "gscx", "Sf", "ratio", "Kc", "Kc_hi", "rm_hi", "W",
-                 "H", "two_over_W", "two_over_H")]
+                ("N", "S", "VX", "V", "RM", "row_fan", "lit", "mid", "RP")] \
+        + [(n, ctypes.c_float) for n in
+           ("gsc", "gscx", "Sf", "ratio", "Kc", "Kc_hi", "rm_hi", "W", "H",
+            "two_over_W", "two_over_H", "ratio_m")]
+
+
+def _ratio_m(RM: int, RP: int) -> float:
+    """Rect pixel -> march cell factor of the hat upsample (fp32)."""
+    return float(np.float32(RM - 1) / np.float32(max(RP - 1, 1)))
 
 
 def march_params(N: int, S: int, VX: int, V: int, RM: int, RP: int,
-                 K: int, row_fan: bool, W: int, H: int) -> MarchParams:
+                 K: int, row_fan: bool, W: int, H: int,
+                 lit: bool = False) -> MarchParams:
     ratio = (RP - 1.0) / max(RM - 1, 1)
     Kc = K / ratio
     return MarchParams(
-        N=N, S=S, VX=VX, V=V, RM=RM, row_fan=int(row_fan),
+        N=N, S=S, VX=VX, V=V, RM=RM, row_fan=int(row_fan), lit=int(lit),
+        mid=S // 2, RP=RP,
         gsc=_f32(V - 1), gscx=_f32(VX - 1), Sf=_f32(S), ratio=_f32(ratio),
         Kc=_f32(Kc), Kc_hi=_f32(Kc - 1e-3), rm_hi=_f32(RM - 1.0 - 1e-3),
         W=_f32(W), H=_f32(H), two_over_W=_f32(2.0 / W),
-        two_over_H=_f32(2.0 / H))
+        two_over_H=_f32(2.0 / H), ratio_m=_ratio_m(RM, RP))
 
 
 def _hat(g, k, n: int, wdt):
@@ -153,10 +194,12 @@ def _shift(x, delta, idx, axis: int):
     return (1.0 - fr) * a + fr * b
 
 
-def warp_march_plain(bank, vidx, pgeom, rx_u, ry_w, camf,
-                     p: MarchParams):
-    """Plain PyTorch version of kernel A (same arithmetic).  Returns
-    (P2m [N, RM, RM] fp32, clamp count [1] int32)."""
+def _march_fan_exp_plain(bank, vidx, pgeom, rx_u, ry_w, camf,
+                         p: MarchParams, lbank=None):
+    """The march, fan and exps kernels A and C share (csrc/
+    warp_common.cuh:march_fan_exp), in plain PyTorch with the same
+    arithmetic.  Returns (P1m, P2m [N, RM, RM] fp32 -- P1m is P2m when
+    unlit --, clamp count [1] int32)."""
     dev = pgeom.device
     f32 = torch.float32
     N, RM, S = p.N, p.RM, p.S
@@ -193,6 +236,7 @@ def warp_march_plain(bank, vidx, pgeom, rx_u, ry_w, camf,
     stacks = bank[vidx.long()]                          # [N, S, VX, V]
     n_idx = torch.arange(N, device=dev).reshape(N, 1, 1)
     od = torch.zeros((N, RM, RM), dtype=f32, device=dev)
+    tau = torch.zeros((N, RM, RM), dtype=f32, device=dev)
     for s in range(S):
         zeta = float(np.float32(np.float32(s) + np.float32(0.5))
                      / np.float32(p.Sf))
@@ -207,17 +251,23 @@ def warp_march_plain(bank, vidx, pgeom, rx_u, ry_w, camf,
         a0 = torch.floor(gxc).to(torch.int64)
         wy0, wy1 = _hat(gyc, b0, p.V, wdt), _hat(gyc, b0 + 1, p.V, wdt)
         wx0, wx1 = _hat(gxc, a0, p.VX, wdt), _hat(gxc, a0 + 1, p.VX, wdt)
-        slab = stacks[:, s]                             # [N, VX, V]
 
-        def tap(a, b):
-            a = a.clamp(0, p.VX - 1).expand(N, RM, RM)
-            b = b.clamp(0, p.V - 1).expand(N, RM, RM)
-            return slab[n_idx, a, b].to(f32)
+        def sample(slab, acc):
+            """acc + sum over the x taps of rnd(Wy . slab[a]) * wx."""
+            def tap(a, b):
+                a = a.clamp(0, p.VX - 1).expand(N, RM, RM)
+                b = b.clamp(0, p.V - 1).expand(N, RM, RM)
+                return slab[n_idx, a, b].to(f32)
 
-        for a, wx in ((a0, wx0), (a0 + 1, wx1)):
-            t1v = wy0 * tap(a, b0) + wy1 * tap(a, b0 + 1)
-            t1v = t1v.to(wdt).to(f32)
-            od = od + t1v * wx
+            for a, wx in ((a0, wx0), (a0 + 1, wx1)):
+                t1v = wy0 * tap(a, b0) + wy1 * tap(a, b0 + 1)
+                acc = acc + t1v.to(wdt).to(f32) * wx
+            return acc
+
+        od = sample(stacks[:, s], od)                   # slab [N, VX, V]
+        if p.lit and s == p.mid:
+            # center-lit: one light sample, this step's masked weights
+            tau = sample(lbank[vidx.long(), s], tau)
     q = od * geo
 
     # fan shift (closed form of render/warp.fan_shifts), column pass
@@ -275,40 +325,73 @@ def warp_march_plain(bank, vidx, pgeom, rx_u, ry_w, camf,
 
     P2m = 1.0 - torch.exp(-x)
     P2m = torch.where(valid, P2m, torch.zeros_like(P2m))
-    return P2m, n_clamp.to(torch.int32).reshape(1)
+    P1m = P2m
+    if p.lit:
+        # the tau plane bypasses the fan: atten = exp(-tau') per ray
+        taup = (scale * ext) * torch.clamp(tau, min=0.0)
+        P1m = torch.exp(-taup) * P2m
+    return P1m, P2m, n_clamp.to(torch.int32).reshape(1)
 
 
-def warp_march(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams):
-    """Kernel A: march + fan + exp of the depth-ordered particles.
-    ``bank`` [M, S, VX, V] (bf16 or fp32 slab bank), ``vidx`` [N] int32,
-    ``pgeom`` [N, PG_N] fp32, ``rx_u``/``ry_w`` [N, RM] fp32, ``camf``
-    [16] fp32 (eye, right, up, fwd, scale_x, scale_y).  Returns (P2m
-    [N, RM, RM] fp32, clamp count [1] int32)."""
+def warp_march_plain(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams,
+                     lbank=None):
+    """Plain PyTorch version of kernel A (same arithmetic).  Returns
+    (P2m [N, RM, RM] -- lit: (P1m, P2m) [N, 2, RM, RM] -- fp32, clamp
+    count [1] int32)."""
+    P1m, P2m, clamp = _march_fan_exp_plain(bank, vidx, pgeom, rx_u, ry_w,
+                                           camf, p, lbank)
+    return (torch.stack([P1m, P2m], dim=1) if p.lit else P2m), clamp
+
+
+def _check_march(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams,
+                 lbank):
     dev = pgeom.device
     N, RM = p.N, p.RM
     _check(bank, "bank", (torch.bfloat16, torch.float32),
            (bank.shape[0], p.S, p.VX, p.V), dev)
+    if p.lit:
+        if lbank is None:
+            raise ValueError("a lit march needs the light slab bank")
+        _check(lbank, "lbank", (bank.dtype,), tuple(bank.shape), dev)
+    elif lbank is not None:
+        raise ValueError("light slab bank given to an unlit march")
     _check(vidx, "vidx", (torch.int32,), (N,), dev)
     _check(pgeom, "pgeom", (torch.float32,), (N, PG_N), dev)
     _check(rx_u, "rx_u", (torch.float32,), (N, RM), dev)
     _check(ry_w, "ry_w", (torch.float32,), (N, RM), dev)
     _check(camf, "camf", (torch.float32,), (16,), dev)
+    return dev
+
+
+def warp_march(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams,
+               lbank=None):
+    """Kernel A: march + fan + exp of the depth-ordered particles.
+    ``bank`` [M, S, VX, V] (bf16 or fp32 slab bank), ``vidx`` [N] int32,
+    ``pgeom`` [N, PG_N] fp32, ``rx_u``/``ry_w`` [N, RM] fp32, ``camf``
+    [16] fp32 (eye, right, up, fwd, scale_x, scale_y), ``lbank`` the
+    light slab bank (shape and type of ``bank``) when ``p.lit``.
+    Returns (P2m [N, RM, RM] -- lit: (P1m, P2m) [N, 2, RM, RM] -- fp32,
+    clamp count [1] int32)."""
+    dev = _check_march(bank, vidx, pgeom, rx_u, ry_w, camf, p, lbank)
     if dev.type != "cuda":
-        return warp_march_plain(bank, vidx, pgeom, rx_u, ry_w, camf, p)
+        return warp_march_plain(bank, vidx, pgeom, rx_u, ry_w, camf, p,
+                                lbank)
     from volq_torch.render._build import load
     fn = load("warp_march").warp_march_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7 \
-        + [MarchParams, ctypes.c_void_p]
-    P2m = torch.empty((N, RM, RM), dtype=torch.float32, device=dev)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] \
+        + [ctypes.c_void_p] * 7 + [MarchParams, ctypes.c_void_p]
+    N, RM = p.N, p.RM
+    Pm = torch.empty((N, 2, RM, RM) if p.lit else (N, RM, RM),
+                     dtype=torch.float32, device=dev)
     clamp = torch.zeros((1,), dtype=torch.int32, device=dev)
-    err = fn(_ptr(bank), int(bank.dtype == torch.bfloat16), _ptr(vidx),
-             _ptr(pgeom), _ptr(rx_u), _ptr(ry_w), _ptr(camf), _ptr(P2m),
-             _ptr(clamp), p, _stream(dev))
+    err = fn(_ptr(bank), _ptr(lbank), int(bank.dtype == torch.bfloat16),
+             _ptr(vidx), _ptr(pgeom), _ptr(rx_u), _ptr(ry_w), _ptr(camf),
+             _ptr(Pm), _ptr(clamp), p, _stream(dev))
     if err:
         raise RuntimeError(f"warp_march launch failed: CUDA error {err}")
     warp_march.launches += 1
-    return P2m, clamp
+    return Pm, clamp
 
 
 warp_march.launches = 0
@@ -319,14 +402,15 @@ warp_march.launches = 0
 
 class CompositeParams(ctypes.Structure):
     """Mirrors ``CompositeParams`` in csrc/warp_composite.cu."""
-    _fields_ = [(n, ctypes.c_int) for n in ("N", "RM", "RP", "Hc", "Wc")] \
+    _fields_ = [(n, ctypes.c_int)
+                for n in ("N", "RM", "RP", "Hc", "Wc", "lit")] \
         + [("ratio_m", ctypes.c_float)]
 
 
-def composite_params(N: int, RM: int, RP: int, Hc: int,
-                     Wc: int) -> CompositeParams:
-    ratio_m = float(np.float32(RM - 1) / np.float32(max(RP - 1, 1)))
-    return CompositeParams(N=N, RM=RM, RP=RP, Hc=Hc, Wc=Wc, ratio_m=ratio_m)
+def composite_params(N: int, RM: int, RP: int, Hc: int, Wc: int,
+                     lit: bool = False) -> CompositeParams:
+    return CompositeParams(N=N, RM=RM, RP=RP, Hc=Hc, Wc=Wc, lit=int(lit),
+                           ratio_m=_ratio_m(RM, RP))
 
 
 def _taps(g, n: int, pdt):
@@ -335,71 +419,94 @@ def _taps(g, n: int, pdt):
     return k0, _hat(g, k0, n, pdt), _hat(g, k0 + 1, n, pdt)
 
 
-def warp_composite_plain(canvas, P2m, ayf, axf, cc, valid,
-                         p: CompositeParams, pdt):
-    """Plain PyTorch version of kernel B: particle by particle in depth
-    order, the placed P2 of its rect and the OVER RMW of the canvas
-    (updated in place and returned)."""
-    f32 = torch.float32
-    RP, RM = p.RP, p.RM
-    cdt = canvas.dtype
-    pos = torch.arange(RP, dtype=f32, device=canvas.device) * p.ratio_m
-    k0, wy0, wy1 = _taps(pos, RM, pdt)       # rows: the same for every
-    m0, wx0, wx1 = _taps(pos, RM, pdt)       # particle (integer origins)
+def _upsample_plain(P, RP: int, ratio_m: float, pdt):
+    """Hat upsample of planes P [..., RM, RM] fp32 to [..., RP, RP]:
+    the plane rounded to ``pdt``, the y pass summed in fp32 and rounded
+    to ``pdt``, the x pass summed in fp32 (each weight row has two
+    non-zero taps; the reference spells both passes as matmuls)."""
+    RM = P.shape[-1]
+    pos = torch.arange(RP, dtype=torch.float32, device=P.device) * ratio_m
+    k0, w0, w1 = _taps(pos, RM, pdt)
     k1 = (k0 + 1).clamp(max=RM - 1)
-    m1 = (m0 + 1).clamp(max=RM - 1)
+    P = P.to(pdt).to(torch.float32)
+    t = w0[:, None] * P[..., k0, :] + w1[:, None] * P[..., k1, :]
+    t = t.to(pdt).to(torch.float32)                      # [..., RP, RM]
+    return t[..., k0] * w0 + t[..., k1] * w1             # [..., RP, RP]
+
+
+def warp_composite_plain(canvas, Pm, ayf, axf, cc, valid,
+                         p: CompositeParams, pdt, cc2=None):
+    """Plain PyTorch version of kernel B: particle by particle in depth
+    order, the placed plane(s) of its rect and the OVER RMW of the
+    canvas (updated in place and returned)."""
+    f32 = torch.float32
+    RP = p.RP
+    cdt = canvas.dtype
     keep = valid.to(torch.bool).tolist()
     y0s = ayf.to(torch.int64).tolist()
     x0s = axf.to(torch.int64).tolist()
     for k in range(p.N):
         if not keep[k]:
             continue
-        P = P2m[k].to(pdt).to(f32)
-        t = wy0[:, None] * P[k0] + wy1[:, None] * P[k1]      # [RP, RM]
-        t = t.to(pdt).to(f32)
-        placed = t[:, m0] * wx0 + t[:, m1] * wx1             # [RP, RP]
+        placed = _upsample_plain(Pm[k], RP, p.ratio_m, pdt)
         ys = slice(y0s[k], y0s[k] + RP)
         xs = slice(x0s[k], x0s[k] + RP)
         Tw = canvas[3, ys, xs].to(f32)
-        T2 = Tw * placed
+        if p.lit:
+            T1, T2 = Tw * placed[0], Tw * placed[1]
+        else:
+            T2 = Tw * placed
         for ch in range(3):
-            canvas[ch, ys, xs] = (canvas[ch, ys, xs].to(f32)
-                                  + cc[k, ch] * T2).to(cdt)
+            upd = (cc[k, ch] * T1 + cc2[k, ch] * T2 if p.lit
+                   else cc[k, ch] * T2)
+            canvas[ch, ys, xs] = (canvas[ch, ys, xs].to(f32) + upd).to(cdt)
         canvas[3, ys, xs] = (Tw - T2).to(cdt)
     return canvas
 
 
-def warp_composite(canvas, P2m, ayf, axf, cc, valid, p: CompositeParams,
-                   pdt):
-    """Kernel B: OVER of the depth-ordered particles' placed P2 planes
-    onto ``canvas`` [4, Hc, Wc] (bf16 or fp32; updated in place and
-    returned).  ``P2m`` [N, RM, RM] fp32, ``ayf``/``axf`` [N] fp32 rect
-    origins in canvas pixels, ``cc`` [N, 3] fp32 colour factors
-    alb*(lcol+amb), ``valid`` [N] int32; ``pdt`` is the placement
-    rounding type (the working dtype, fp32 when RM == RP)."""
+def warp_composite(canvas, Pm, ayf, axf, cc, valid, p: CompositeParams,
+                   pdt, cc2=None):
+    """Kernel B: OVER of the depth-ordered particles' placed planes onto
+    ``canvas`` [4, Hc, Wc] (bf16 or fp32; updated in place and
+    returned).  ``Pm`` fp32: P2m [N, RM, RM] unlit, (P1m, P2m)
+    [N, 2, RM, RM] when ``p.lit``; ``ayf``/``axf`` [N] fp32 rect origins
+    in canvas pixels; ``cc`` [N, 3] fp32 colour factors: alb*(lcol+amb)
+    unlit, alb*lcol lit with ``cc2`` = alb*amb; ``valid`` [N] int32;
+    ``pdt`` is the placement rounding type (the working dtype, fp32 when
+    RM == RP).  The per-pixel walk follows the list's order; the
+    reference's pair reorder only swaps depth-adjacent particles whose
+    canvas windows are disjoint, so it changes no pixel's order and has
+    no counterpart here."""
     dev = canvas.device
     N, RM = p.N, p.RM
     _check(canvas, "canvas", (torch.bfloat16, torch.float32),
            (4, p.Hc, p.Wc))
-    _check(P2m, "P2m", (torch.float32,), (N, RM, RM), dev)
+    _check(Pm, "Pm", (torch.float32,),
+           (N, 2, RM, RM) if p.lit else (N, RM, RM), dev)
     _check(ayf, "ayf", (torch.float32,), (N,), dev)
     _check(axf, "axf", (torch.float32,), (N,), dev)
     _check(cc, "cc", (torch.float32,), (N, 3), dev)
+    if p.lit:
+        if cc2 is None:
+            raise ValueError("a lit composite needs cc2 (alb * ambient)")
+        _check(cc2, "cc2", (torch.float32,), (N, 3), dev)
+    elif cc2 is not None:
+        raise ValueError("cc2 given to an unlit composite")
     _check(valid, "valid", (torch.int32,), (N,), dev)
     if pdt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"placement dtype {pdt} not supported")
     if dev.type != "cuda":
-        return warp_composite_plain(canvas, P2m, ayf, axf, cc, valid, p,
-                                    pdt)
+        return warp_composite_plain(canvas, Pm, ayf, axf, cc, valid, p,
+                                    pdt, cc2)
     from volq_torch.render._build import load
     fn = load("warp_composite").warp_composite_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int] + [ctypes.c_void_p] * 4 \
+                   ctypes.c_int] + [ctypes.c_void_p] * 5 \
         + [CompositeParams, ctypes.c_void_p]
-    err = fn(_ptr(canvas), int(canvas.dtype == torch.bfloat16), _ptr(P2m),
+    err = fn(_ptr(canvas), int(canvas.dtype == torch.bfloat16), _ptr(Pm),
              int(pdt == torch.bfloat16), _ptr(ayf), _ptr(axf), _ptr(cc),
-             _ptr(valid), p, _stream(dev))
+             _ptr(cc2), _ptr(valid), p, _stream(dev))
     if err:
         raise RuntimeError(f"warp_composite launch failed: CUDA error {err}")
     warp_composite.launches += 1
@@ -407,3 +514,123 @@ def warp_composite(canvas, P2m, ayf, axf, cc, valid, p: CompositeParams,
 
 
 warp_composite.launches = 0
+
+
+# --------------------------------------------------------------------------
+# kernel C: warp_images
+
+def warp_images_plain(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams,
+                      alb, lightf, lbank=None):
+    """Plain PyTorch version of kernel C (same arithmetic).  Returns
+    (images [N, 4, RP, RP] in the bank's type, clamp count [1] int32)."""
+    wdt = bank.dtype
+    P1, P2, clamp = _march_fan_exp_plain(bank, vidx, pgeom, rx_u, ry_w,
+                                         camf, p, lbank)
+    if p.RM != p.RP:
+        P2 = _upsample_plain(P2, p.RP, p.ratio_m, wdt)
+        P1 = _upsample_plain(P1, p.RP, p.ratio_m, wdt) if p.lit else P2
+    a = alb.reshape(p.N, 3, 1, 1)
+    lcol = lightf[0:3].reshape(1, 3, 1, 1)
+    amb = lightf[3:6].reshape(1, 3, 1, 1)
+    rgb = a * (lcol * P1[:, None] + amb * P2[:, None])
+    return torch.cat([rgb, (1.0 - P2)[:, None]], dim=1).to(wdt), clamp
+
+
+def warp_images(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams, alb,
+                lightf, lbank=None):
+    """Kernel C: the unfused march -- kernel A's march, fan and exps,
+    the RM -> RP hat upsample and the RGB expansion
+    ``img[ch] = wdt(alb_ch * (lcol_ch * P1 + amb_ch * P2))``,
+    ``img[3] = wdt(1 - P2)``.  Inputs as ``warp_march`` (any particle
+    order) plus ``alb`` [N, 3] fp32 and ``lightf`` [6] fp32 (light
+    colour, ambient).  Returns (images [N, 4, RP, RP] in the bank's
+    type, clamp count [1] int32)."""
+    dev = _check_march(bank, vidx, pgeom, rx_u, ry_w, camf, p, lbank)
+    _check(alb, "alb", (torch.float32,), (p.N, 3), dev)
+    _check(lightf, "lightf", (torch.float32,), (6,), dev)
+    if dev.type != "cuda":
+        return warp_images_plain(bank, vidx, pgeom, rx_u, ry_w, camf, p,
+                                 alb, lightf, lbank)
+    from volq_torch.render._build import load
+    fn = load("warp_images").warp_images_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] \
+        + [ctypes.c_void_p] * 9 + [MarchParams, ctypes.c_void_p]
+    images = torch.empty((p.N, 4, p.RP, p.RP), dtype=bank.dtype, device=dev)
+    clamp = torch.zeros((1,), dtype=torch.int32, device=dev)
+    err = fn(_ptr(bank), _ptr(lbank), int(bank.dtype == torch.bfloat16),
+             _ptr(vidx), _ptr(pgeom), _ptr(rx_u), _ptr(ry_w), _ptr(camf),
+             _ptr(alb), _ptr(lightf), _ptr(images), _ptr(clamp), p,
+             _stream(dev))
+    if err:
+        raise RuntimeError(f"warp_images launch failed: CUDA error {err}")
+    warp_images.launches += 1
+    return images, clamp
+
+
+warp_images.launches = 0
+
+
+# --------------------------------------------------------------------------
+# kernel D: composite_chunk
+
+class ChunkParams(ctypes.Structure):
+    """Mirrors ``ChunkParams`` in csrc/composite_chunk.cu."""
+    _fields_ = [(n, ctypes.c_int) for n in ("n", "RP", "Hc", "Wc")]
+
+
+def composite_chunk_plain(canvas, images, oy, ox, order, p: ChunkParams):
+    """Plain PyTorch version of kernel D: image by image in composite
+    order, the OVER RMW of its canvas rect (canvas updated in place and
+    returned)."""
+    f32 = torch.float32
+    RP = p.RP
+    cdt = canvas.dtype
+    ks = range(p.n) if order is None else order.tolist()
+    y0s, x0s = oy.tolist(), ox.tolist()
+    for k in ks:
+        ys = slice(y0s[k], y0s[k] + RP)
+        xs = slice(x0s[k], x0s[k] + RP)
+        img = images[k].to(f32)
+        Tw = canvas[3, ys, xs].to(f32)
+        canvas[:3, ys, xs] = (canvas[:3, ys, xs].to(f32)
+                              + Tw[None] * img[:3]).to(cdt)
+        canvas[3, ys, xs] = (Tw * img[3]).to(cdt)
+    return canvas
+
+
+def composite_chunk(canvas, images, oy, ox, order, p: ChunkParams):
+    """Kernel D: OVER of one chunk of per-particle images [n, 4, RP, RP]
+    (bf16 or fp32) onto ``canvas`` [4, Hc, Wc] (bf16 or fp32; updated in
+    place and returned).  Image k lands with its top-left pixel at
+    canvas (``oy[k]``, ``ox[k]``) (int32, inside the canvas); the images
+    are composited in the order ``order`` [n] int32 lists them, or as
+    stored when it is None.  Per covered pixel:
+    ``C_ch = cdt(C_ch + Tw * img_ch)``, ``T = cdt(Tw * img_3)``."""
+    dev = canvas.device
+    n, RP = p.n, p.RP
+    dts = (torch.bfloat16, torch.float32)
+    _check(canvas, "canvas", dts, (4, p.Hc, p.Wc))
+    _check(images, "images", dts, (n, 4, RP, RP), dev)
+    _check(oy, "oy", (torch.int32,), (n,), dev)
+    _check(ox, "ox", (torch.int32,), (n,), dev)
+    if order is not None:
+        _check(order, "order", (torch.int32,), (n,), dev)
+    if dev.type != "cuda":
+        return composite_chunk_plain(canvas, images, oy, ox, order, p)
+    from volq_torch.render._build import load
+    fn = load("composite_chunk").composite_chunk_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int] + [ctypes.c_void_p] * 3 \
+        + [ChunkParams, ctypes.c_void_p]
+    err = fn(_ptr(canvas), int(canvas.dtype == torch.bfloat16), _ptr(images),
+             int(images.dtype == torch.bfloat16), _ptr(oy), _ptr(ox),
+             _ptr(order), p, _stream(dev))
+    if err:
+        raise RuntimeError(f"composite_chunk launch failed: CUDA error {err}")
+    composite_chunk.launches += 1
+    return canvas
+
+
+composite_chunk.launches = 0

@@ -1,23 +1,33 @@
 """The warp renderer's host side (counterpart of ``volq/render/warp.py``):
-per-particle shear-warp impostors, fused march + composite.
+per-particle shear-warp impostors, march + composite.
 
 Per frame: rotate the scene into engine coordinates for the static
 march axis (``permute_for_march``), compute each particle's rect, ray
 grid and validity (``_grid_geometry``), order the particles by view
-depth (a stable sort of view-z, invalid last), then run kernel A
-(``kernel.warp_march``: march + fan + exp per particle) and kernel B
-(``kernel.warp_composite``: depth-ordered OVER onto the padded canvas),
+depth (a stable sort of view-z, invalid last), then
+
+* fused (``warp_fused``, the default): kernel A (``kernel.warp_march``:
+  march + fan + exp per particle) and kernel B (``kernel.
+  warp_composite``: depth-ordered OVER onto the padded canvas);
+* unfused (``warp_fused=False``): per depth-ordered megachunk of at most
+  ``warp_mega`` particles, kernel C (``kernel.warp_images``: march + fan
+  + exp + upsample into per-particle images) and kernel D (``kernel.
+  composite_chunk``: OVER of the chunk onto the carried canvas);
+
 and finish the canvas over the background (``_canvas_finish``).
 
-The slice ported so far is the production unlit mode of c3: perspective
-camera, static volumes, slab banks, fused, unpaired.  ``check_supported``
+The slice ported so far is the production mode of c3 and c4:
+perspective camera, static volumes, slab banks, unlit or center-lit
+(``light_mode="center"``: one sample of the baked light volume per ray
+at the particle's mid-depth step), fused or unfused.  ``check_supported``
 raises NotImplementedError for every other mode.  Flags that change
-neither the image nor this path are accepted: ``warp_pack`` (TPU grid
-packing, bit-identical), ``warp_chunk`` / ``warp_mega`` (unfused-path
-chunking), ``warp_swap_bf16`` (sharded wire).  The port always marches
-from pre-lerped slab banks: where the reference would stream volumes
-instead (``use_slab_banks`` False) its in-kernel lerp is the same math,
-and only the x-resample (``slab_vx_eff``) depends on that choice.
+neither the image nor this path are accepted: ``warp_pair`` and
+``warp_pack`` (TPU MXU-tile pairing and grid packing, bit-identical),
+``warp_chunk`` (XLA-path chunking), ``warp_swap_bf16`` (sharded wire).
+The port always marches from pre-lerped slab banks: where the reference
+would stream volumes instead (``use_slab_banks`` False) its in-kernel
+lerp is the same math, and only the x-resample (``slab_vx_eff``) depends
+on that choice.
 """
 from __future__ import annotations
 
@@ -52,11 +62,9 @@ def check_supported(cfg: SceneConfig) -> None:
          "Queue 1 items 10-11"),
         (not r.warp_pallas, "warp_pallas=False (the XLA warp path)",
          "Queue 1 item 5"),
-        (not r.warp_fused, "warp_fused=False (unfused march + composite)",
-         "Queue 2 items 2-3"),
-        (r.light_steps > 0, "lit warp modes (light_steps > 0)",
-         "Queue 2 item 1, Queue 1 item 3"),
-        (bool(r.warp_pair), "warp_pair", "Queue 2 item 1"),
+        (r.light_steps > 0 and r.light_mode != "center",
+         f"per-step lit marches (light_mode={r.light_mode!r} with "
+         "light_steps > 0)", "Queue 2 item 1"),
         (bool(r.warp_coarse), "warp_coarse", "Queue 2 item 1"),
         (bool(r.warp_canvas_scale), "warp_canvas_scale", "Queue 2 item 1"),
         (bool(r.warp_interleave), "warp_interleave", "Queue 2 item 1"),
@@ -102,8 +110,9 @@ def _march_perm(cfg: SceneConfig):
 def permute_for_march(particles: Particles, camera: Camera,
                       cfg: SceneConfig):
     """Rotate particles and camera into engine coordinates (identity when
-    already z-marching with an unrolled camera); the volume bank is
-    rotated once, when its slab banks are baked (``bake_slab_banks``)."""
+    already z-marching with an unrolled camera); the volume bank and the
+    light volumes are rotated once, when their slab banks are baked
+    (``bake_slab_banks``)."""
     vp, _ = _march_perm(cfg)
     if vp == (0, 1, 2):
         return particles, camera
@@ -200,18 +209,38 @@ def bake_march_slabs(volumes, S: int, dtype, vx: int = 0):
 
 
 def bake_slab_banks(volumes, light_volumes, cfg: SceneConfig):
-    """World-coordinate entry point: permute the bank into engine
-    coordinates for the march axis and bake its marching slabs.  Returns
-    (density, None) (the light bank belongs to the lit modes, not ported).
-    Cache it across frames for static scenes."""
+    """World-coordinate entry point: permute the volume bank(s) into
+    engine coordinates for the march axis and bake their marching slabs
+    (same x-extent, same working type).  Returns (density, light or
+    None); the light bank is baked when ``light_volumes`` is given and
+    ``light_steps > 0``.  Cache it across frames for static scenes."""
     check_supported(cfg)
+    r = cfg.render
     V = volumes.shape[-1]
     _, ap = _march_perm(cfg)
+    lit = light_volumes is not None and r.light_steps > 0
     if ap != (0, 1, 2, 3):
         volumes = volumes.permute(ap)
-    wdt = torch.float32 if cfg.render.warp_fp32 else torch.bfloat16
-    return (bake_march_slabs(volumes, cfg.render.steps, wdt,
-                             slab_vx_eff(cfg, V)), None)
+        if lit:
+            light_volumes = light_volumes.permute(ap)
+    wdt = torch.float32 if r.warp_fp32 else torch.bfloat16
+    vx = slab_vx_eff(cfg, V)
+    return (bake_march_slabs(volumes, r.steps, wdt, vx),
+            bake_march_slabs(light_volumes, r.steps, wdt, vx) if lit
+            else None)
+
+
+def upsample_weights(RP: int, RM: int):
+    """Constant hat-weight pair (Uy [RP, RM], Ux [RM, RP], numpy fp32)
+    resampling the endpoint-aligned RM march grid to the RP rect: rect
+    cell i reads march coordinate i * (RM-1)/(RP-1).  The kernels form
+    the two non-zero taps of each row themselves; this dense form is the
+    reference the tests hold ``kernel._upsample_plain`` to."""
+    ratio = np.float32(RM - 1) / np.float32(RP - 1)
+    p = (np.arange(RP, dtype=np.float32) * ratio)[:, None]
+    m = np.arange(RM, dtype=np.float32)[None, :]
+    Uy = np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(p - m))
+    return Uy, np.ascontiguousarray(Uy.T)
 
 
 def march_rect(cfg: SceneConfig) -> int:
@@ -351,26 +380,27 @@ def _canvas_finish(C, T, cfg: SceneConfig, h_local: int):
     return torch.cat([rgb, (1.0 - T)[None]], dim=0).permute(1, 2, 0)
 
 
-def fused_inputs(particles: Particles, camera: Camera, light: Light,
-                 cfg: SceneConfig, bank, y_start: int, h_local: int):
-    """Everything the two kernels take for one frame, in depth order.
-    Returns (march args tuple, composite args tuple -- without the
-    canvas --, stats)."""
-    r = cfg.render
-    N = particles.age.shape[0]
-    dev = particles.pos.device
-    particles, camera = permute_for_march(particles, camera, cfg)
-    geom, stats = _grid_geometry(particles, camera, cfg, y_start, h_local)
-
+def _depth_order(geom):
+    """Composite order: ascending view depth, invalid particles last
+    (stable)."""
     z = torch.where(geom["valid"], geom["vz"],
                     torch.full_like(geom["vz"], float("inf")))
-    order = torch.argsort(z, stable=True)
-    po = particles._replace(**{f: getattr(particles, f)[order]
-                               for f in Particles._fields})
-    go = {k: v[order] for k, v in geom.items()}
+    return torch.argsort(z, stable=True)
 
-    RP, RM, S = r.warp_rect, march_rect(cfg), r.steps
-    V = bank.shape[-1]
+
+def _take(particles: Particles, geom, ids):
+    return (particles._replace(**{f: getattr(particles, f)[ids]
+                                  for f in Particles._fields}),
+            {k: v[ids] for k, v in geom.items()})
+
+
+def _march_inputs(po: Particles, go, camera: Camera, cfg: SceneConfig,
+                  bank, lbank):
+    """The argument tuple of ``kernel.warp_march`` for the particles
+    ``po`` with geometry ``go`` (engine coordinates, any order)."""
+    r = cfg.render
+    N = po.age.shape[0]
+    dev = po.pos.device
     f32 = torch.float32
     pos = po.pos.to(f32)
     half = po.size.to(f32)
@@ -388,19 +418,95 @@ def fused_inputs(particles: Particles, camera: Camera, light: Light,
     camf = torch.cat([camera.eye, camera.right, camera.up, camera.fwd,
                       camera.scale_x.reshape(1), camera.scale_y.reshape(1),
                       torch.zeros(2, dtype=f32, device=dev)]).to(f32)
-    mp = K.march_params(N, S, bank.shape[2], V, RM, RP, r.warp_shift_max,
-                        needs_row_fan(cfg), r.width, r.height)
-    march = (bank.contiguous(), po.vol_idx.to(torch.int32), pgeom,
-             go["rx_u"].contiguous(), go["ry_w"].contiguous(), camf, mp)
+    mp = K.march_params(N, r.steps, bank.shape[2], bank.shape[-1],
+                        march_rect(cfg), r.warp_rect, r.warp_shift_max,
+                        needs_row_fan(cfg), r.width, r.height,
+                        lit=lbank is not None)
+    return (bank.contiguous(), po.vol_idx.to(torch.int32), pgeom,
+            go["rx_u"].contiguous(), go["ry_w"].contiguous(), camf, mp,
+            None if lbank is None else lbank.contiguous())
 
+
+def fused_inputs(particles: Particles, camera: Camera, light: Light,
+                 cfg: SceneConfig, bank, y_start: int, h_local: int,
+                 lbank=None):
+    """Everything kernels A and B take for one frame, in depth order;
+    ``lbank`` (the light slab bank) switches the center-lit mode on.
+    Returns (march args tuple, composite args tuple -- without the
+    canvas --, stats)."""
+    r = cfg.render
+    N = particles.age.shape[0]
+    particles, camera = permute_for_march(particles, camera, cfg)
+    geom, stats = _grid_geometry(particles, camera, cfg, y_start, h_local)
+    po, go = _take(particles, geom, _depth_order(geom))
+    march = _march_inputs(po, go, camera, cfg, bank, lbank)
+
+    RP, RM = r.warp_rect, march_rect(cfg)
+    f32 = torch.float32
+    lit = lbank is not None
     cg = K.canvas_geom(cfg, h_local)
     ayf, axf = _window_corners(go["sy0"], go["sx0"], cg, y_start)
-    cc = po.albedo.to(f32) * (light.color + light.ambient)[None]
+    alb = po.albedo.to(f32)
+    if lit:
+        cc, cc2 = alb * light.color[None], alb * light.ambient[None]
+    else:
+        cc, cc2 = alb * (light.color + light.ambient)[None], None
     wdt = f32 if r.warp_fp32 else torch.bfloat16
     pdt = f32 if RM == RP else wdt
     comp = (ayf, axf, cc.contiguous(), go["valid"].to(torch.int32),
-            K.composite_params(N, RM, RP, cg.Hc, cg.Wc), pdt)
+            K.composite_params(N, RM, RP, cg.Hc, cg.Wc, lit), pdt,
+            None if cc2 is None else cc2.contiguous())
     return march, comp, stats
+
+
+def mega_chunk(cfg: SceneConfig, N: int) -> int:
+    """Particles per megachunk of the unfused path: the largest divisor
+    of N not above ``warp_mega`` (N when ``warp_mega`` is 0)."""
+    C = N
+    if cfg.render.warp_mega > 0:
+        C = min(cfg.render.warp_mega, N)
+        while N % C:
+            C -= 1
+    return C
+
+
+def unfused_inputs(particles: Particles, camera: Camera, light: Light,
+                   cfg: SceneConfig, bank, y_start: int, h_local: int,
+                   lbank=None):
+    """Everything kernels C and D take for one frame: one (images args
+    tuple, composite args tuple -- without canvas and images --) per
+    depth-ordered megachunk, and the stats.  The reference marches a
+    streamed shared bank in vol-idx-sorted order (a DMA dedup) and
+    composites through a permutation; here every chunk is marched in
+    depth order, except that a single chunk is marched as stored and
+    composited through ``order``, as the reference's one-chunk fast path
+    does."""
+    r = cfg.render
+    N = particles.age.shape[0]
+    dev = particles.pos.device
+    particles, camera = permute_for_march(particles, camera, cfg)
+    geom, stats = _grid_geometry(particles, camera, cfg, y_start, h_local)
+    order = _depth_order(geom)
+    C = mega_chunk(cfg, N)
+    RP = r.warp_rect
+    WH, WW, Hc, Wc = K._canvas_dims(cfg, h_local)
+    lightf = torch.cat([light.color, light.ambient]).to(torch.float32)
+    chunks = []
+    for m in range(N // C):
+        if N == C:
+            pm, gm, comp_order = particles, geom, order.to(torch.int32)
+        else:
+            pm, gm = _take(particles, geom, order[m * C:(m + 1) * C])
+            comp_order = None
+        march = _march_inputs(pm, gm, camera, cfg, bank, lbank)
+        oy = torch.clamp(gm["sy0"] - y_start + RP, 0, Hc - WH)
+        ox = torch.clamp(gm["sx0"] + RP, 0, Wc - WW)
+        chunks.append((
+            march[:7] + (pm.albedo.to(torch.float32).contiguous(), lightf,
+                         march[7]),
+            (oy.to(torch.int32), ox.to(torch.int32), comp_order,
+             K.ChunkParams(n=C, RP=RP, Hc=Hc, Wc=Wc))))
+    return chunks, stats
 
 
 def render_warp_canvas(particles: Particles, volumes, camera: Camera,
@@ -409,20 +515,51 @@ def render_warp_canvas(particles: Particles, volumes, camera: Camera,
                        slab_banks=None):
     """March + composite the particles onto a fresh padded canvas,
     without the final crop.  Returns (canvas [4, Hc, Wc] -- premultiplied
-    C in [:3], T in [3] --, stats).  Stats: alive, rendered, straddled,
-    rect_overflow, shift_clamped (the reference's ``win_hazard`` counts
-    TPU window-pipeline stalls and has no counterpart here)."""
+    C in [:3], T in [3] --, stats).  ``light_volumes`` (the baked light
+    optical depth, ``volume.lightbake``) switches the lit march on when
+    ``light_steps > 0``; with ``warp_fused=False`` the particles go
+    through depth-sorted megachunks of at most ``warp_mega`` (march a
+    chunk into images, composite it onto the carried canvas, next
+    chunk).
+
+    Stats: alive, rendered, straddled, rect_overflow, shift_clamped, all
+    exact.  The reference's ``win_hazard``, ``pair_defer`` and
+    ``pair_inactive`` count stalls and envelope misses of its TPU window
+    pipeline and MXU pairing (they depend on VMEM residency) and have no
+    counterpart here.  ``warp_pair``'s composite reorder
+    (``_pair_swap_order``) only swaps depth-adjacent particles whose
+    canvas windows are disjoint, so no pixel's order changes and the
+    image is the unpaired one."""
     check_supported(cfg)
+    r = cfg.render
     if h_local is None:
-        h_local = cfg.render.height
+        h_local = r.height
+    if light_volumes is not None and r.light_steps <= 0:
+        light_volumes = None       # no light march requested: unlit
     if slab_banks is None:
         slab_banks = bake_slab_banks(volumes, light_volumes, cfg)
-    march, comp, stats = fused_inputs(particles, camera, light, cfg,
-                                      slab_banks[0], y_start, h_local)
-    P2m, clamp = K.warp_march(*march)
-    canvas = K.canvas_init(cfg, h_local, particles.pos.device)
-    canvas = K.warp_composite(canvas, P2m, *comp)
-    return canvas, dict(stats, shift_clamped=clamp[0])
+    bank = slab_banks[0]
+    lbank = slab_banks[1] if light_volumes is not None else None
+    if light_volumes is not None and lbank is None:
+        raise ValueError("a lit render needs the light slab bank: bake "
+                         "slab_banks with the light volumes")
+    dev = particles.pos.device
+    if r.warp_fused:
+        march, comp, stats = fused_inputs(particles, camera, light, cfg,
+                                          bank, y_start, h_local, lbank)
+        Pm, clamp = K.warp_march(*march)
+        canvas = K.canvas_init(cfg, h_local, dev)
+        canvas = K.warp_composite(canvas, Pm, *comp)
+        return canvas, dict(stats, shift_clamped=clamp[0])
+    chunks, stats = unfused_inputs(particles, camera, light, cfg, bank,
+                                   y_start, h_local, lbank)
+    canvas = K.canvas_init(cfg, h_local, dev, fused=False)
+    shift_clamped = torch.zeros((), dtype=torch.int32, device=dev)
+    for img_args, comp_args in chunks:
+        images, clamp = K.warp_images(*img_args)
+        canvas = K.composite_chunk(canvas, images, *comp_args)
+        shift_clamped = shift_clamped + clamp[0]
+    return canvas, dict(stats, shift_clamped=shift_clamped)
 
 
 def render_warp(particles: Particles, volumes, camera: Camera, light: Light,

@@ -6,8 +6,9 @@
 Phases (any failure raises, and the script exits non-zero without the
 final result line):
   1. print the card (nvidia-smi name, power limit) and torch/CUDA versions;
-  2. build the four kernels from volq_torch/csrc/ (one nvcc per source, in
-     parallel) and print the build seconds;
+  2. build the four kernels (every mode of each is in its one source) from
+     volq_torch/csrc/ (one nvcc per source, in parallel) and print the
+     build seconds;
   3. set up preset c3 at full size (1024 particles, 1024 x 128^3 bank,
      1920x1080) and bake its slab banks;
   4. hold kernels A (warp_march) and B (warp_composite) against their
@@ -38,8 +39,30 @@ final result line):
      rounds each image to bf16 first and updates T as Tw * (1 - P2), the
      fused one as Tw - Tw * P2); time every kernel, its plain version and
      both c4 loops;
-  9. print the kernels JSON line, the card line, and last the result
-     line {"ok": true, "device": {...}}.
+  9. c4 per-step lit (light_mode="march", the reference suite's
+     c4:perstep row), fused and with warp_fused=False, on c4's state with
+     the full-x slab banks this mode takes: hold A and C in per-step mode
+     (and B, D behind them) against their plain versions at c4's full
+     shapes, drive both loops from zeroed counters (A 1, B 1 / C 2, D 2
+     per frame), compare the fused and unfused images within the budgets
+     of phase 8, time the kernels and both loops;
+ 10. c4 with warp_bands=2, warp_canvas_vmem=1 and, unpaired,
+     warp_hazard_passes=1: the image must equal c4's plain image of the
+     same state exactly;
+ 11. set up preset c5 at full size (16384 particles, 16 x 64^3 bank baked
+     from 4-D noise, 3840x2160, coarse + interleaved cell canvas,
+     center-lit); time the three bakes every c5 frame holds (4-D bank,
+     light bank, slab banks); hold A and B at c5's shapes (every particle
+     of a frame) in bf16 (c5's mode) and fp32, then each of B's new modes
+     alone on a depth-contiguous run of 4096 particles (cell canvas
+     without the interleaved association, and the interleaved association
+     on a pixel canvas); drive frames(n=4) from
+     zeroed counters (A 1, B 1 per frame; every frame re-bakes the
+     bank), check the image, time the kernels and the loop;
+ 12. print the kernels JSON line (per kernel: launches, error, ms, plain
+     ms and bound on the c4 path, with the c3, c4 per-step and c5 paths'
+     numbers under "c3", "c4_perstep" and "c5"), the card line, and last
+     the result line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device
 it exits non-zero and prints no result.
@@ -58,6 +81,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 N_FRAMES = 8
 N_FRAMES_UNFUSED = 4
+N_FRAMES_C5 = 4
+# depth-contiguous run of particles B's modes are each held on alone
+RUN = 4096
 # fused vs unfused image of one c4 state: BASELINE.md's on-device budget of
 # the c4-class bf16 rows, and the reference's fp32 budget between two paths
 BF16_BUDGET = 6 / 256
@@ -87,9 +113,25 @@ def _cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def _fp32(cfg):
+def _with(cfg, **kw):
     return dataclasses.replace(cfg, render=dataclasses.replace(
-        cfg.render, warp_fp32=True, warp_canvas_fp32=True))
+        cfg.render, **kw))
+
+
+def _fp32(cfg):
+    return _with(cfg, warp_fp32=True, warp_canvas_fp32=True)
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """Host-clock ms per call of ``fn``, fenced by device synchronizes."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def _mode(cfg) -> str:
@@ -112,6 +154,58 @@ def _counts():
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+def _sub_run(Pm, comp, k0, n):
+    """Kernel B's inputs for the depth-contiguous particles [k0, k0+n)."""
+    from volq_torch.render import kernel as K
+    ayf, axf, box, cc, valid, cp, pdt, cc2 = comp
+    sl = slice(k0, k0 + n)
+    cut = lambda t: None if t is None else t[sl].contiguous()  # noqa: E731
+    sub = K.CompositeParams.from_buffer_copy(cp)
+    sub.N = n
+    return Pm[sl].contiguous(), (cut(ayf), cut(axf), cut(box), cut(cc),
+                                 cut(valid), sub, pdt, cut(cc2))
+
+
+def _densest_run(comp, n):
+    """Start of the run of n depth-consecutive particles with the most
+    valid ones."""
+    import torch
+    valid = comp[4].to(torch.float32)
+    if valid.numel() <= n:
+        return 0
+    csum = torch.cat([valid.new_zeros(1), valid.cumsum(0)])
+    return int((csum[n:] - csum[:-n]).argmax())
+
+
+def check_composite(tag, c, Pm, comp, errs, run=None):
+    """Kernel B vs its plain version on ``comp`` (``run``: only on the
+    densest depth-contiguous run of that many particles)."""
+    import torch
+    from volq_torch.render import kernel as K
+    H = c.render.height
+    if run is not None and run < comp[5].N:
+        k0 = _densest_run(comp, run)
+        Pm, comp = _sub_run(Pm, comp, k0, run)
+        tag += f" particles [{k0}, {k0 + run})"
+    cp = comp[5]
+    canvas0 = K.canvas_init(c, H, Pm.device)
+    out_k = K.warp_composite(canvas0.clone(), Pm, *comp)
+    t0 = time.perf_counter()
+    out_p = K.warp_composite_plain(canvas0.clone(), Pm, *comp)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    d = float((out_k.float() - out_p.float()).abs().max())
+    touched = float((out_k.float() - canvas0.float()).abs().max())
+    print(f"[kernels] {tag} warp_composite {_mode(c)} N={cp.N} canvas "
+          f"{tuple(out_k.shape)} lit={cp.lit} ilv={cp.ilv} gscale="
+          f"{cp.gscale:.6f}: bit-equal {torch.equal(out_k, out_p)}, max diff "
+          f"{d:.3e}, max change vs blank canvas {touched:.4f} (plain walk "
+          f"{dt:.1f} s)")
+    assert torch.equal(out_k, out_p), f"warp_composite {_mode(c)} differs"
+    assert touched > 0.0, "warp_composite left the canvas blank"
+    errs["warp_composite"] = max(errs["warp_composite"], d)
+
+
 def check_fused(tag, state, camera, light, cfg, lv, errs):
     """Kernels A and B vs their plain versions at every particle of a
     frame, in the preset's mode and in fp32 (lit when ``lv`` is given)."""
@@ -128,7 +222,8 @@ def check_fused(tag, state, camera, light, cfg, lv, errs):
         torch.cuda.synchronize()
         err = float((pk - pp).abs().max())
         print(f"[kernels] {tag} warp_march {_mode(c)} N={march[6].N} "
-              f"planes {tuple(pk.shape)}: max|kernel - plain| = {err:.3e}, "
+              f"lit={march[6].lit} planes {tuple(pk.shape)}: "
+              f"max|kernel - plain| = {err:.3e}, "
               f"shift_clamped {int(ck[0])} vs {int(cpl[0])}, "
               f"P max {float(pk.max()):.4f}")
         assert err <= 1e-5, f"warp_march {_mode(c)} disagrees: {err}"
@@ -139,19 +234,7 @@ def check_fused(tag, state, camera, light, cfg, lv, errs):
             assert shadow > 0.01, "the light sample changed nothing"
         errs["warp_march"] = max(errs["warp_march"], err)
         del pp
-
-        canvas0 = K.canvas_init(c, H, pk.device)
-        out_k = K.warp_composite(canvas0.clone(), pk, *comp)
-        out_p = K.warp_composite_plain(canvas0.clone(), pk, *comp)
-        torch.cuda.synchronize()
-        d = float((out_k.float() - out_p.float()).abs().max())
-        touched = float((out_k.float() - canvas0.float()).abs().max())
-        print(f"[kernels] {tag} warp_composite {_mode(c)}: bit-equal "
-              f"{torch.equal(out_k, out_p)}, max diff {d:.3e}, "
-              f"max change vs blank canvas {touched:.4f}")
-        assert torch.equal(out_k, out_p), f"warp_composite {_mode(c)} differs"
-        assert touched > 0.0, "warp_composite left the canvas blank"
-        errs["warp_composite"] = max(errs["warp_composite"], d)
+        check_composite(tag, c, pk, comp, errs)
 
 
 def check_unfused(tag, state, camera, light, cfg, lv, errs):
@@ -203,9 +286,12 @@ def _bound(by, fl):
 def _march_work(args):
     """(bytes in, flops) of the march + fan + exp part of kernels A and C
     on these inputs: the slab stacks of the distinct volumes the valid
-    particles use (lit: plus one light slab each), the per-particle
-    scalars and ray vectors; per valid ray 12 flops per step, ~80 for
-    the AABB, fan and exps, ~20 more for the light sample."""
+    particles use (center-lit: plus one light slab each; per-step lit:
+    plus their light stacks), the per-particle scalars and ray vectors;
+    per valid ray 12 flops per step telescoped or ~70 per-step lit (two
+    samples, two exps, the recurrence), ~80 for the AABB, fan and exps
+    (~40 more for the second plane's fan), ~20 for the center light
+    sample."""
     import torch
     from volq_torch.render import kernel as K
     bank, vidx, pgeom, mp = args[0], args[1], args[2], args[6]
@@ -213,25 +299,33 @@ def _march_work(args):
     nv = int(valid.sum())
     stacks = int(torch.unique(vidx[valid]).numel())
     slab = mp.VX * mp.V * bank.element_size()
-    by = (stacks * (mp.S + (1 if mp.lit else 0)) * slab
+    light_slabs = {K.UNLIT: 0, K.CENTER: 1, K.PERSTEP: mp.S}[mp.lit]
+    by = (stacks * (mp.S + light_slabs) * slab
           + mp.N * (K.PG_N * 4 + 4 + 2 * mp.RM * 4))
-    fl = nv * mp.RM * mp.RM * (12 * mp.S + 80 + (20 if mp.lit else 0))
-    return by, fl, nv
+    per_ray = {K.UNLIT: 12 * mp.S + 80, K.CENTER: 12 * mp.S + 100,
+               K.PERSTEP: 70 * mp.S + 120}[mp.lit]
+    return by, nv * mp.RM * mp.RM * per_ray, nv
 
 
 def bounds(march, comp, canvas):
     """Least time the card needs for kernels A and B on these inputs:
-    max(bytes moved / HBM rate, flops / fp32 rate), in ms."""
-    mp, cp = march[6], comp[4]
+    max(bytes moved / HBM rate, flops / fp32 rate), in ms.  B's flops
+    count the canvas cells inside the valid particles' boxes (~30 per
+    cell and plane pair unlit, 52 lit, 44 / 76 with the interleaved
+    association's four folded channels)."""
+    mp, cp = march[6], comp[5]
     npl = 2 if mp.lit else 1
     a_in, a_flops, nv = _march_work(march)
     a_bytes = a_in + mp.N * npl * mp.RM * mp.RM * 4
     b_bytes = (2 * canvas.numel() * canvas.element_size()
                + nv * npl * mp.RM * mp.RM * 4
-               + mp.N * (4 + 4 + 12 * npl + 4))
-    b_flops = nv * cp.RP * cp.RP * (30 if npl == 1 else 52)
+               + mp.N * (4 + 4 + 16 + 12 * npl + 4))
+    box, valid = comp[2].long(), comp[4] > 0
+    cells = int(((box[:, 1] - box[:, 0]).clamp(min=0)
+                 * (box[:, 3] - box[:, 2]).clamp(min=0))[valid].sum())
+    per_cell = {(1, 0): 30, (2, 0): 52, (1, 1): 44, (2, 1): 76}[npl, cp.ilv]
     return {"warp_march": _bound(a_bytes, a_flops),
-            "warp_composite": _bound(b_bytes, b_flops)}
+            "warp_composite": _bound(b_bytes, cells * per_cell)}
 
 
 def bounds_unfused(chunks, canvas, itemsize):
@@ -292,12 +386,34 @@ def drive(tag, state, camera, light, cfg, lv, sb, n, expect):
     return state, image, counts
 
 
+def same_image(tag, state, camera, light, cfg, ucfg, lv, sb):
+    """One state through the fused and the unfused path, in the preset's
+    bf16 mode and in fp32: the images agree within the budgets."""
+    from volq_torch.render.warp import bake_slab_banks, render_warp
+    for budget, conv in ((BF16_BUDGET, lambda c: c), (FP32_BUDGET, _fp32)):
+        banks = sb if conv(cfg) is cfg else bake_slab_banks(
+            state.volumes, lv, conv(cfg))
+        img_f, img_u = (render_warp(state.particles, state.volumes, camera,
+                                    light, conv(c), light_volumes=lv,
+                                    slab_banks=banks)[0]
+                        for c in (cfg, ucfg))
+        d = float((img_f - img_u).abs().max())
+        print(f"[main] {tag} fused vs unfused image of one state, "
+              f"{_mode(conv(cfg))}: max diff {d:.3e} (budget {budget:.3e})")
+        assert d <= budget, f"fused and unfused {tag} images differ by {d}"
+
+
 def time_fused(tag, state, camera, light, cfg, sb, card):
     """ms of A, B and their plain versions at the state's inputs, and
-    their bounds."""
+    their bounds.  ``sb`` None (animated scenes): the state's banks are
+    baked here, as the frame does."""
+    from volq_torch.engine import loop
     from volq_torch.render import kernel as K
-    from volq_torch.render.warp import fused_inputs
+    from volq_torch.render.warp import fused_inputs, bake_slab_banks
     H = cfg.render.height
+    if sb is None:
+        sb = bake_slab_banks(state.volumes,
+                             loop._light_volumes(state, light, cfg), cfg)
     march, comp, _ = fused_inputs(state.particles, camera, light, cfg,
                                   sb[0], 0, H, sb[1])
     Pm, _ = K.warp_march(*march)
@@ -351,10 +467,10 @@ def time_unfused(tag, state, camera, light, cfg, sb, card):
             for name in ms}
 
 
-def time_loop(tag, prepared, cfg, card):
+def time_loop(tag, prepared, cfg, card, fb=N_FRAMES, n_frames=16, warmup=1):
     from volq_torch.engine import loop
     band = []
-    spf, _ = loop.time_frames(cfg, 16, warmup=1, fb=N_FRAMES, windows=3,
+    spf, _ = loop.time_frames(cfg, n_frames, warmup=warmup, fb=fb, windows=3,
                               window_times=band, prepared=prepared)
     mrays = cfg.render.width * cfg.render.height / spf / 1e6
     print(f"[loop] {tag} time_frames: {spf * 1e3:.3f} ms/frame, "
@@ -369,8 +485,11 @@ def main() -> int:
         return 2
     from volq_torch.engine import loop
     from volq_torch.render._build import build_all
-    from volq_torch.render.warp import bake_slab_banks, render_warp
-    from volq_torch.scene.config import c3, c4
+    from volq_torch.render import kernel as K
+    from volq_torch.render.warp import (bake_slab_banks, fused_inputs,
+                                        render_warp)
+    from volq_torch.scene.config import c3, c4, c5
+    from volq_torch.scene.state import bake_volumes
     from volq_torch.sim.step import sim_step
 
     card = _card_line()
@@ -399,6 +518,7 @@ def main() -> int:
     # inputs of the first frame, for the kernel checks
     check_fused("c3", sim_step(state, cfg), camera, light, cfg, None, errs)
     fused = {"warp_march": 1, "warp_composite": 1}
+    unfused = {"warp_images": 2, "composite_chunk": 2}
     state, _, c3_counts = drive("c3", state, camera, light, cfg, None, sb,
                                 N_FRAMES, fused)
     c3_times = time_fused("c3", state, camera, light, cfg, sb, card)
@@ -408,8 +528,7 @@ def main() -> int:
 
     # ---- c4: center-lit, as shipped (fused) and with warp_fused=False
     cfg = c4()
-    ucfg = dataclasses.replace(cfg, render=dataclasses.replace(
-        cfg.render, warp_fused=False))
+    ucfg = _with(cfg, warp_fused=False)
     t0 = time.perf_counter()
     state, camera, light = loop.setup(cfg)
     torch.cuda.synchronize()
@@ -427,33 +546,94 @@ def main() -> int:
     st1 = sim_step(state, cfg)
     check_fused("c4", st1, camera, light, cfg, lv, errs)
     check_unfused("c4", st1, camera, light, ucfg, lv, errs)
-    del st1
 
     st_f, _, c4_counts = drive("c4 fused", state, camera, light, cfg, lv,
                                sb, N_FRAMES, fused)
-    st_u, _, u_counts = drive(
-        "c4 unfused", state, camera, light, ucfg, lv, sb, N_FRAMES_UNFUSED,
-        {"warp_images": 2, "composite_chunk": 2})
-    # one state, both paths, in c4's bf16 mode and in fp32
-    for budget, conv in ((BF16_BUDGET, lambda c: c), (FP32_BUDGET, _fp32)):
-        banks = sb if conv(cfg) is cfg else bake_slab_banks(
-            st_u.volumes, lv, conv(cfg))
-        img_f, img_u = (render_warp(st_u.particles, st_u.volumes, camera,
-                                    light, conv(c), light_volumes=lv,
-                                    slab_banks=banks)[0]
-                        for c in (cfg, ucfg))
-        d = float((img_f - img_u).abs().max())
-        print(f"[main] c4 fused vs unfused image of one state, "
-              f"{_mode(conv(cfg))}: max diff {d:.3e} (budget {budget:.3e})")
-        assert d <= budget, f"fused and unfused c4 images differ by {d}"
-    del banks, img_f, img_u
-
+    st_u, _, u_counts = drive("c4 unfused", state, camera, light, ucfg, lv,
+                              sb, N_FRAMES_UNFUSED, unfused)
+    same_image("c4", st_u, camera, light, cfg, ucfg, lv, sb)
     c4_times = time_fused("c4", st_f, camera, light, cfg, sb, card)
     c4_times.update(time_unfused("c4", st_f, camera, light, ucfg, sb, card))
-    # in turns: the host-bound loop drifts within one process
-    for tag, st, c in (("c4 fused", st_f, cfg), ("c4 unfused", st_u, ucfg),
-                       ("c4 unfused", st_u, ucfg), ("c4 fused", st_f, cfg)):
+    for tag, st, c in (("c4 fused", st_f, cfg), ("c4 unfused", st_u, ucfg)):
         time_loop(tag, (st, camera, light, lv, sb), c, card)
+
+    # ---- c4 with bands, the resident-canvas flag and the hazard reorder
+    img, stats = render_warp(st_f.particles, st_f.volumes, camera, light,
+                             cfg, light_volumes=lv, slab_banks=sb)
+    for kw in (dict(warp_bands=2, warp_canvas_vmem=1),
+               dict(warp_pair=0, warp_hazard_passes=1)):
+        alt, st_alt = render_warp(st_f.particles, st_f.volumes, camera,
+                                  light, _with(cfg, **kw),
+                                  light_volumes=lv, slab_banks=sb)
+        print(f"[main] c4 with {kw}: image equal to c4's "
+              f"{torch.equal(alt, img)}, rendered {int(st_alt['rendered'])} "
+              f"vs {int(stats['rendered'])}")
+        assert torch.equal(alt, img), f"{kw} changed the image"
+    del img, alt
+
+    # ---- c4 per-step lit (light_mode="march"), fused and unfused
+    pcfg = _with(cfg, light_mode="march")
+    pucfg = _with(pcfg, warp_fused=False)
+    psb = loop.cached_slab_banks(state, lv, pcfg)
+    print(f"[setup] c4 per-step slab banks {tuple(psb[0].shape)} x 2 "
+          f"{psb[0].dtype}")
+    assert psb[1].shape == psb[0].shape and psb[0].shape[2] == 64
+    check_fused("c4 per-step", st1, camera, light, pcfg, lv, errs)
+    check_unfused("c4 per-step", st1, camera, light, pucfg, lv, errs)
+    del st1
+    sp_f, _, p_counts = drive("c4 per-step fused", state, camera, light,
+                              pcfg, lv, psb, N_FRAMES, fused)
+    sp_u, _, pu_counts = drive("c4 per-step unfused", state, camera, light,
+                               pucfg, lv, psb, N_FRAMES_UNFUSED, unfused)
+    p_counts = dict(pu_counts, warp_march=p_counts["warp_march"],
+                    warp_composite=p_counts["warp_composite"])
+    same_image("c4 per-step", sp_u, camera, light, pcfg, pucfg, lv, psb)
+    p_times = time_fused("c4 per-step", sp_f, camera, light, pcfg, psb, card)
+    p_times.update(time_unfused("c4 per-step", sp_f, camera, light, pucfg,
+                                psb, card))
+    for tag, st, c in (("c4 per-step fused", sp_f, pcfg),
+                       ("c4 per-step unfused", sp_u, pucfg)):
+        time_loop(tag, (st, camera, light, lv, psb), c, card)
+    del state, st_f, st_u, sp_f, sp_u, sb, psb, lv
+    torch.cuda.empty_cache()
+
+    # ---- c5: animated 4-D bank, coarse + interleaved cell canvas, 4K
+    cfg = c5()
+    t0 = time.perf_counter()
+    state, camera, light = loop.setup(cfg)
+    torch.cuda.synchronize()
+    print(f"[setup] c5 setup (4-D bank bake {tuple(state.volumes.shape)} "
+          f"{state.volumes.dtype} + particle init): "
+          f"{time.perf_counter() - t0:.2f} s")
+    assert loop.cached_light_volumes(state, light, cfg) is None
+    assert loop.cached_slab_banks(state, None, cfg) is None
+    st1 = sim_step(state, cfg)
+    lv = loop._light_volumes(st1, light, cfg)
+    for what, fn in (
+            ("4-D bank bake", lambda: bake_volumes(cfg, "cuda", st1.time)),
+            ("light bake", lambda: loop._light_volumes(st1, light, cfg)),
+            ("slab bake (both banks)",
+             lambda: bake_slab_banks(st1.volumes, lv, cfg))):
+        print(f"[bake] c5 {what}: {_wall_ms(fn, 3):.3f} ms per frame  "
+              f"[{card}]")
+    check_fused("c5", st1, camera, light, cfg, lv, errs)
+    # B's new modes each alone, on a run of particles: the cell canvas
+    # without the interleaved association, and that association on a
+    # pixel canvas
+    for tag, c in (("c5 cells, planes", _with(cfg, warp_interleave=0)),
+                   ("c5 pixels, ilv", _with(cfg, warp_coarse=0))):
+        bank, lbank = bake_slab_banks(st1.volumes, lv, c)
+        march, comp, _ = fused_inputs(st1.particles, camera, light, c, bank,
+                                      0, c.render.height, lbank)
+        Pm, _ = K.warp_march(*march)
+        check_composite(tag, c, Pm, comp, errs, run=RUN)
+    del st1, lv, bank, lbank, march, comp, Pm
+    torch.cuda.empty_cache()
+    state, _, c5_counts = drive("c5", state, camera, light, cfg, None, None,
+                                N_FRAMES_C5, fused)
+    c5_times = time_fused("c5", state, camera, light, cfg, None, card)
+    time_loop("c5", (state, camera, light, None, None), cfg, card,
+              fb=N_FRAMES_C5, n_frames=N_FRAMES_C5, warmup=0)
 
     sources = {name: f"volq_torch/csrc/{name}.cu" for name in NAMES}
     replaces = {"warp_march": "volq/render/kernel.py:175",
@@ -468,8 +648,12 @@ def main() -> int:
              "replaces": replaces[name], "launches": launches[name],
              "max_abs_err": errs[name], **c4_times[name],
              "library_ms": None, "path": "c4"}
-        if name in c3_times:    # the unlit path of the same kernel
-            k["c3"] = {"launches": c3_counts[name], **c3_times[name]}
+        # the other paths through the same kernel
+        for path, counts, times in (("c3", c3_counts, c3_times),
+                                    ("c4_perstep", p_counts, p_times),
+                                    ("c5", c5_counts, c5_times)):
+            if name in times:
+                k[path] = {"launches": counts[name], **times[name]}
         kernels.append(k)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -155,25 +155,48 @@ UNSUPPORTED = [
     dict(warp_bands=2),
     dict(warp_hazard_passes=1),
 ]
+STILL_OUTSIDE = ("engine", "warp_pallas")
 
 
 @pytest.mark.parametrize("kw", UNSUPPORTED, ids=lambda kw: ",".join(kw))
 def test_flags_outside_the_slice_raise(tiny_cfg, kw):
+    """Other engines and the XLA warp path raise, naming the ROADMAP
+    item.  The other flags have joined the slice: each is accepted on its
+    own, renders (tests/test_torch_warp_c5.py, test_torch_perstep.py),
+    and still raises under a camera that is outside the slice."""
     base = c3_flags(tiny_cfg)
     cfg = _port(dataclasses.replace(
         base, render=dataclasses.replace(base.render, **kw)))
+    if not set(kw) & set(STILL_OUTSIDE):
+        tw.check_supported(cfg)
+        cfg = dataclasses.replace(cfg, camera=dataclasses.replace(
+            cfg.camera, projection="ortho"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tw.check_supported(cfg)
 
 
 def test_ortho_and_animated_raise(tiny_cfg):
+    """An ortho camera still raises; animated volumes are accepted now,
+    alone and with every flag that joined the slice with them."""
     base = _port(c3_flags(tiny_cfg))
-    for cfg in (dataclasses.replace(base, camera=dataclasses.replace(
-                    base.camera, projection="ortho")),
-                dataclasses.replace(base, volume=dataclasses.replace(
-                    base.volume, animated=True))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tw.check_supported(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tw.check_supported(dataclasses.replace(
+            base, camera=dataclasses.replace(base.camera,
+                                             projection="ortho")))
+    animated = dataclasses.replace(base, volume=dataclasses.replace(
+        base.volume, animated=True))
+    tw.check_supported(animated)
+    tw.check_supported(dataclasses.replace(
+        animated, render=dataclasses.replace(
+            animated.render, warp_coarse=1, warp_interleave=1,
+            warp_bands=2, warp_canvas_vmem=1, warp_hazard_passes=1,
+            light_steps=4)))
+    tw.check_supported(TC.c5())
+    c4 = TC.c4()
+    for fused in (True, False):
+        tw.check_supported(dataclasses.replace(
+            c4, render=dataclasses.replace(c4.render, light_mode="march",
+                                           warp_fused=fused)))
 
 
 def test_kernel_wrappers_on_cpu_run_plain_and_count_nothing(tiny_cfg):

@@ -287,7 +287,7 @@ def test_kernel_wrappers_on_cpu_run_plain_and_count_nothing(tiny_lit_cfg):
     with pytest.raises(ValueError, match="light slab bank"):
         K.warp_march(*march[:7])
     with pytest.raises(ValueError, match="cc2"):
-        K.warp_composite(canvas, Pm, *comp[:6])
+        K.warp_composite(canvas, Pm, *comp[:-1])
     with pytest.raises(TypeError):
         K.warp_images(*img_args[:7], img_args[7].double(), *img_args[8:])
     with pytest.raises(ValueError):

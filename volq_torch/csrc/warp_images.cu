@@ -10,7 +10,8 @@
 // RM == RP) and the RGB expansion
 //   img[ch] = wdt(alb_ch * (lcol_ch * P1 + amb_ch * P2)),  img[3] = wdt(1 - P2)
 // into images [N, 4, RP, RP] in the working type, plus the shift-clamp
-// count.  Unlit (P1 == P2) and center-lit.  The composite is kernel D
+// count.  Unlit (P1 == P2), center-lit and per-step lit (the march's
+// lighting modes, warp_common.cuh).  The composite is kernel D
 // (composite_chunk.cu).
 //
 // Design.  One block per particle, in whatever order the caller marches
@@ -40,7 +41,7 @@ struct SmemSink {
   }
 };
 
-template <typename T, bool LIT>
+template <typename T, int MODE>
 __global__ void __launch_bounds__(kMarchThreads)
 warp_images_kernel(const T* __restrict__ bank, const T* __restrict__ lbank,
                    const int* __restrict__ vidx,
@@ -55,6 +56,7 @@ warp_images_kernel(const T* __restrict__ bank, const T* __restrict__ lbank,
   __shared__ int blk_clamp;
   const int n = blockIdx.x;
   const int RM = p.RM, RP = p.RP, RR = RM * RM, PP = RP * RP;
+  constexpr bool LIT = MODE != kUnlit;
   constexpr int NPL = LIT ? 2 : 1;
   float* plane = sm;                       // [RM, RM] fan scratch
   float* P2s = sm + RR;                    // [RM, RM]
@@ -67,8 +69,8 @@ warp_images_kernel(const T* __restrict__ bank, const T* __restrict__ lbank,
       img[e] = cvt<T>(e >= 3 * PP ? 1.f : 0.f);
     return;
   }
-  march_fan_exp<T, LIT>(bank, lbank, vidx, pgeom, rxu, ryw, camf, p, n, plane,
-                        &blk_clamp, SmemSink{P1s, P2s});
+  march_fan_exp<T, MODE>(bank, lbank, vidx, pgeom, rxu, ryw, camf, p, n,
+                         plane, &blk_clamp, SmemSink{P1s, P2s});
   __syncthreads();
   if (threadIdx.x == 0 && blk_clamp) atomicAdd(clamp_out, blk_clamp);
 
@@ -129,7 +131,7 @@ static size_t images_smem(const MarchParams& p) {
           + (p.RM != p.RP ? (size_t)npl * p.RP * p.RM : 0)) * sizeof(float);
 }
 
-template <typename T, bool LIT>
+template <typename T, int MODE>
 static int launch_i(const void* bank, const void* lbank, const int* vidx,
                     const float* pgeom, const float* rxu, const float* ryw,
                     const float* camf, const float* alb, const float* lightf,
@@ -137,13 +139,29 @@ static int launch_i(const void* bank, const void* lbank, const int* vidx,
                     cudaStream_t st) {
   const size_t smem = images_smem(p);
   cudaError_t e = cudaFuncSetAttribute(
-      warp_images_kernel<T, LIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      warp_images_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  warp_images_kernel<T, LIT><<<p.N, kMarchThreads, smem, st>>>(
+  warp_images_kernel<T, MODE><<<p.N, kMarchThreads, smem, st>>>(
       (const T*)bank, (const T*)lbank, vidx, pgeom, rxu, ryw, camf, alb,
       lightf, (T*)images, clamp_out, p);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_t(const void* bank, const void* lbank, const int* vidx,
+                    const float* pgeom, const float* rxu, const float* ryw,
+                    const float* camf, const float* alb, const float* lightf,
+                    void* images, int* clamp_out, MarchParams p,
+                    cudaStream_t st) {
+  if (p.lit == kPerStep)
+    return launch_i<T, kPerStep>(bank, lbank, vidx, pgeom, rxu, ryw, camf,
+                                 alb, lightf, images, clamp_out, p, st);
+  if (p.lit == kCenter)
+    return launch_i<T, kCenter>(bank, lbank, vidx, pgeom, rxu, ryw, camf, alb,
+                                lightf, images, clamp_out, p, st);
+  return launch_i<T, kUnlit>(bank, nullptr, vidx, pgeom, rxu, ryw, camf, alb,
+                             lightf, images, clamp_out, p, st);
 }
 
 extern "C" int warp_images_launch(const void* bank, const void* lbank,
@@ -154,22 +172,13 @@ extern "C" int warp_images_launch(const void* bank, const void* lbank,
                                   void* images, int* clamp_out, MarchParams p,
                                   void* stream) {
   if (p.RM * p.RM > kMarchThreads * kMaxPerThread || (p.lit && !lbank) ||
-      images_smem(p) > 227 * 1024)
+      p.lit < kUnlit || p.lit > kPerStep || images_smem(p) > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   if (p.N == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (bank_bf16) {
-    return p.lit ? launch_i<__nv_bfloat16, true>(bank, lbank, vidx, pgeom, rxu,
-                                                 ryw, camf, alb, lightf,
-                                                 images, clamp_out, p, st)
-                 : launch_i<__nv_bfloat16, false>(bank, nullptr, vidx, pgeom,
-                                                  rxu, ryw, camf, alb, lightf,
-                                                  images, clamp_out, p, st);
-  }
-  return p.lit ? launch_i<float, true>(bank, lbank, vidx, pgeom, rxu, ryw,
-                                       camf, alb, lightf, images, clamp_out,
-                                       p, st)
-               : launch_i<float, false>(bank, nullptr, vidx, pgeom, rxu, ryw,
-                                        camf, alb, lightf, images, clamp_out,
-                                        p, st);
+  if (bank_bf16)
+    return launch_t<__nv_bfloat16>(bank, lbank, vidx, pgeom, rxu, ryw, camf,
+                                   alb, lightf, images, clamp_out, p, st);
+  return launch_t<float>(bank, lbank, vidx, pgeom, rxu, ryw, camf, alb,
+                         lightf, images, clamp_out, p, st);
 }

@@ -2,8 +2,11 @@
 
 ``frame`` is one sim step + one render; ``frames`` runs ``n`` of them in
 a Python loop (bit-identical to repeated ``frame``; CUDA-graph capture
-of the loop waits for a later slice).  Everything stays on the state's
-device; the image leaves it only when the caller fetches it.
+of the loop waits for a later slice).  An animated scene
+(``volume.animated``) re-bakes its volume bank from the simulation time
+after every sim step, and with it the light bank and the slab banks.
+Everything stays on the state's device; the image leaves it only when
+the caller fetches it.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ from volq_torch.core.types import SceneState
 from volq_torch.render import render_frame
 from volq_torch.render.warp import bake_slab_banks, check_supported
 from volq_torch.scene.config import SceneConfig
-from volq_torch.scene.state import init_scene, build_camera, build_light
+from volq_torch.scene.state import (init_scene, build_camera, build_light,
+                                    bake_volumes)
 from volq_torch.sim.step import sim_step
 from volq_torch.volume.lightbake import bake_light_volumes, dominant_axis
 
@@ -33,6 +37,10 @@ def _light_volumes(state: SceneState, light, cfg: SceneConfig):
 def _frame_body(state: SceneState, camera, light, cfg: SceneConfig,
                 light_volumes=None, slab_banks=None):
     state = sim_step(state, cfg)
+    if cfg.volume.animated:
+        state = state._replace(volumes=bake_volumes(
+            cfg, state.volumes.device, state.time))
+        light_volumes = slab_banks = None   # stale: the volumes changed
     if light_volumes is None:
         light_volumes = _light_volumes(state, light, cfg)
     image, stats = render_frame(state.particles, state.volumes, camera,
@@ -46,7 +54,8 @@ def frame(state: SceneState, camera, light, cfg: SceneConfig,
     """Advance one frame.  Returns (new_state, image [H, W, 4], stats).
     Pass ``light_volumes`` from ``cached_light_volumes`` and
     ``slab_banks`` from ``cached_slab_banks`` to skip the per-frame bakes
-    (static scenes); None re-bakes inside the frame."""
+    (static scenes); None re-bakes inside the frame, as animated scenes
+    always do."""
     return _frame_body(state, camera, light, cfg, light_volumes, slab_banks)
 
 
@@ -68,7 +77,8 @@ def frames(state: SceneState, camera, light, cfg: SceneConfig,
 def cached_light_volumes(state: SceneState, light, cfg: SceneConfig):
     """Bake the light optical-depth bank once for a static scene (the
     volumes and the light direction never change between frames), or
-    None when no bake is needed."""
+    None when no bake is needed or (animated volumes) every frame must
+    bake its own."""
     if cfg.volume.animated:
         return None
     return _light_volumes(state, light, cfg)
@@ -77,7 +87,10 @@ def cached_light_volumes(state: SceneState, light, cfg: SceneConfig):
 def cached_slab_banks(state: SceneState, light_volumes, cfg: SceneConfig):
     """Bake the warp engine's marching slab banks once for a static
     scene (they change only with the volumes): (density, light or None
-    when ``light_volumes`` is None or the scene is unlit)."""
+    when ``light_volumes`` is None or the scene is unlit).  None for
+    animated volumes: the frame bakes them after its own re-bake."""
+    if cfg.volume.animated:
+        return None
     return bake_slab_banks(state.volumes, light_volumes, cfg)
 
 

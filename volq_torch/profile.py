@@ -1,13 +1,16 @@
 """Where a frame's time goes, on the card.
 
-    python -m volq_torch.profile [--preset c3|c4] [--unfused] [--frames 4]
+    python -m volq_torch.profile [--preset c3|c4|c5] [--unfused] [--perstep]
+                                 [--frames 4]
 
-Sets the preset up at full size (``--unfused``: with warp_fused=False),
-then prints (with the card's name and power limit): the wall
-milliseconds per frame of each phase, timed alone between device
-synchronizations -- the sim step, the render's host-side preparation
-(geometry, depth sort, kernel inputs), each kernel (the unfused pair
-summed over the frame's megachunks), the canvas init and finish -- and,
+Sets the preset up at full size (``--unfused``: with warp_fused=False;
+``--perstep``: with light_mode="march"), then prints (with the card's
+name and power limit): the wall milliseconds per frame of each phase,
+timed alone between device synchronizations -- the sim step, for an
+animated preset the three bakes every frame holds (4-D volume bank,
+light bank, slab banks), the render's host-side preparation (geometry,
+depth sort, kernel inputs), each kernel (the unfused pair summed over
+the frame's megachunks), the canvas init and finish -- and,
 from a torch.profiler trace of whole frames, the device-busy share of
 the frame and the number of device kernels launched per frame.  Needs a
 CUDA device.
@@ -37,14 +40,17 @@ def main(argv=None) -> int:
     ap.add_argument("--preset", default="c3")
     ap.add_argument("--unfused", action="store_true",
                     help="run the preset with warp_fused=False")
+    ap.add_argument("--perstep", action="store_true",
+                    help='run the preset with light_mode="march"')
     ap.add_argument("--frames", type=int, default=4)
     args = ap.parse_args(argv)
 
     from volq_torch.engine import loop
     from volq_torch.render import kernel as K
     from volq_torch.render.warp import (fused_inputs, unfused_inputs,
-                                        _canvas_finish)
+                                        bake_slab_banks, _canvas_finish)
     from volq_torch.scene.config import PRESETS
+    from volq_torch.scene.state import bake_volumes
     from volq_torch.sim import prng
     from volq_torch.sim.emit import spawn_attrs
     from volq_torch.sim.forces import total_force
@@ -59,6 +65,9 @@ def main(argv=None) -> int:
     if not fused:
         cfg = dataclasses.replace(cfg, render=dataclasses.replace(
             cfg.render, warp_fused=False))
+    if args.perstep:
+        cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+            cfg.render, light_mode="march"))
     H = cfg.render.height
     state, camera, light = loop.setup(cfg)
     lv = loop.cached_light_volumes(state, light, cfg)
@@ -67,10 +76,25 @@ def main(argv=None) -> int:
         state, _, _ = loop.frame(state, camera, light, cfg, lv, sb)
     dev = state.volumes.device
     inputs = fused_inputs if fused else unfused_inputs
+    bakes = {}
+    if cfg.volume.animated:
+        # nothing is cached: every frame bakes all three
+        lv_f = loop._light_volumes(state, light, cfg)
+        bakes = {
+            "4-D volume bank bake": _wall_ms(
+                lambda: bake_volumes(cfg, dev, state.time), 3),
+            "light bake": _wall_ms(
+                lambda: loop._light_volumes(state, light, cfg), 3),
+            "slab bake (both banks)": _wall_ms(
+                lambda: bake_slab_banks(state.volumes, lv_f, cfg), 3),
+        }
+        sb_frame = bake_slab_banks(state.volumes, lv_f, cfg)
+    else:
+        sb_frame = sb
 
     def prep():
-        return inputs(state.particles, camera, light, cfg, sb[0], 0, H,
-                      sb[1])
+        return inputs(state.particles, camera, light, cfg, sb_frame[0], 0,
+                      H, sb_frame[1])
 
     canvas = K.canvas_init(cfg, H, dev, fused=fused)
     if fused:
@@ -97,6 +121,7 @@ def main(argv=None) -> int:
     slots = torch.arange(p.age.shape[0], dtype=torch.int32, device=dev)
     phases = {
         "sim_step": _wall_ms(lambda: sim_step(state, cfg), reps),
+        **bakes,
         "  of which spawn_attrs (threefry draws)": _wall_ms(
             lambda: spawn_attrs(key, slots, cfg.emitter,
                                 cfg.volume.bank_size), reps),
@@ -130,7 +155,8 @@ def main(argv=None) -> int:
     top = sorted(prof.key_averages(), key=lambda a: -getattr(
         a, "self_device_time_total", getattr(a, "self_cuda_time_total", 0)))
 
-    print(f"[profile] {args.preset}{'' if fused else ' unfused'} on {card}")
+    print(f"[profile] {args.preset}{'' if fused else ' unfused'}"
+          f"{' per-step lit' if args.perstep else ''} on {card}")
     print(f"[profile] frame (sim + render), timed alone: {frame_ms:.3f} ms")
     for name, ms in phases.items():
         print(f"[profile]   {name}: {ms:.3f} ms")

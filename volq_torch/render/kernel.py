@@ -1,16 +1,22 @@
 """The warp engine's kernels (counterpart of ``volq/render/kernel.py``).
 
-The TPU's fused ``march_warp_pallas`` (unlit or center-lit, slab banks)
-is split where its work stops being per-particle:
+The TPU's fused ``march_warp_pallas`` (every mode over slab banks) is
+split where its work stops being per-particle:
 
 * ``warp_march`` (kernel A, ``csrc/warp_march.cu``): per depth-ordered
-  particle, the telescoped march over its slab stack, center-lit one
-  more sample of the light slab at step S // 2, the fan shift at march
-  resolution and the exps -> P2m [N, RM, RM] (unlit) or (P1m, P2m)
-  [N, 2, RM, RM] (lit), fp32, plus the shift-clamp count;
+  particle, the march over its slab stack -- telescoped when unlit or
+  center-lit (one more sample of the light slab at step S // 2), the
+  OVER recurrence over density and light slabs when per-step lit
+  (``light_mode="march"``, steps reversed for particles behind the eye
+  plane) --, the fan shift at march resolution and the exps -> P2m
+  [N, RM, RM] (unlit) or (P1m, P2m) [N, 2, RM, RM] (lit), fp32, plus
+  the shift-clamp count;
 * ``warp_composite`` (kernel B, ``csrc/warp_composite.cu``): per canvas
-  tile, the hat upsample of each covering particle's plane(s) into
-  canvas coordinates and the OVER read-modify-write, in depth order.
+  tile, the hat placement of each covering particle's plane(s) into
+  canvas coordinates -- pixels, or the cells of a coarse / scaled canvas
+  (``warp_coarse``, ``warp_canvas_scale``) at a fractional origin -- and
+  the OVER read-modify-write, in depth order; ``warp_interleave``'s
+  association (colour coefficients folded into the x weights) is a mode.
 
 The unfused pair (``warp_fused=False``):
 
@@ -52,27 +58,93 @@ def _f32(x) -> float:
 
 
 class CanvasGeom(NamedTuple):
-    """Fused-path canvas geometry (pixel canvas; the coarse / scaled /
-    interleaved layouts of ``volq/render/kernel.py:CanvasGeom`` are not
-    ported).  ``WH``/``WW`` are the TPU window dims, kept because they
-    size the canvas padding the reference's canvas has; the port
-    composites per pixel."""
+    """Fused-path canvas geometry, field for field the reference's
+    ``volq/render/kernel.py:CanvasGeom`` (its array units: x extents in
+    lanes when ``ilv``, rows / cells / pixels otherwise).
+
+    ``coarse`` (warp_coarse): the canvas axes are march cells of
+    ``1/ratio`` pixels; ``warp_canvas_scale`` gives cells at an arbitrary
+    ``ratio``.  A particle's planes land at the fractional cell position
+    ``pad + s*ratio`` through 2-tap hat weights, and the finish upsamples
+    cells to pixels once per frame.  ``ilv`` (warp_interleave): the TPU
+    stores the canvas as [Hc, Wc] lanes, lane = 4*x + channel, and
+    de-interleaves it once per frame to [4, Hc, Wc // 4] planes; the
+    port's canvas is those planes from the start (``Wx`` columns), and
+    ``ilv`` only selects the composite's association.  ``WH`` / ``WW`` /
+    ``WWA`` are the TPU window's dims; they size the padding and bound
+    what a particle's placement may touch (``warp.placement_boxes``).
+
+      WH, WW, WWA  window rows / x extent / always-copied part of it
+      Hc, Wc       canvas array dims
+      pad          content origin offset (cells or px)
+      hc_img, wc_img  image extent in cells or px (without the padding)
+      cu, sup      placed content extent and support (cu + 1 in cells)
+      e, gx        array elements per x unit (4 if ilv), window x grain
+      ratio        cells per pixel (fp32-exact float), 1.0 on pixels
+    """
     WH: int
     WW: int
+    WWA: int
     Hc: int
     Wc: int
     pad: int
+    hc_img: int
+    wc_img: int
+    cu: int
+    sup: int
+    e: int
+    gx: int
+    ratio: float
+    coarse: bool
+    ilv: bool
+
+    @property
+    def cells(self) -> bool:
+        """The canvas axes are cells, not pixels."""
+        return self.coarse or self.ratio != 1.0
+
+    @property
+    def Wx(self) -> int:
+        """Canvas columns in x units (cells or pixels)."""
+        return self.Wc // self.e
 
 
 def canvas_geom(cfg: SceneConfig, h_local: int) -> CanvasGeom:
-    from volq_torch.render.warp import check_supported
+    from volq_torch.render.warp import check_supported, march_rect
     check_supported(cfg)
     r = cfg.render
-    RP = r.warp_rect
-    WH = -(-(RP + 8) // 8) * 8
-    WW = -(-(128 + RP) // 128) * 128
-    return CanvasGeom(WH=WH, WW=WW, Hc=h_local + RP + WH,
-                      Wc=r.width + RP + WW, pad=RP)
+    RP, RM = r.warp_rect, march_rect(cfg)
+    coarse, ilv = bool(r.warp_coarse), bool(r.warp_interleave)
+    if coarse or r.warp_canvas_scale:
+        if coarse:
+            ratio = float(np.float32(RM - 1) / np.float32(RP - 1))
+            cu = RM
+        else:
+            ratio = float(np.float32(r.warp_canvas_scale))
+            cu = int(np.ceil((RP - 1) * ratio)) + 1
+        sup = cu + 1               # the hat tent leaks past each end
+        hc_img = int(np.ceil((h_local - 1) * ratio)) + 1
+        wc_img = int(np.ceil((r.width - 1) * ratio)) + 1
+        pad = cu                   # |s0| * ratio <= cu - 1 off screen
+    else:
+        ratio = 1.0
+        cu = sup = pad = RP
+        hc_img, wc_img = h_local, r.width
+    e = 4 if ilv else 1
+    gx = 128 // e
+    WH = -(-(sup + 8) // 8) * 8
+    WW = -(-(e * (gx + sup)) // 128) * 128
+    WWA = min(WW, -(-(e * (sup + gx // 2)) // 128) * 128)
+    return CanvasGeom(WH, WW, WWA, hc_img + pad + WH,
+                      e * (wc_img + pad) + WW, pad, hc_img, wc_img, cu,
+                      sup, e, gx, ratio, coarse, ilv)
+
+
+def cell_to_march(cg: CanvasGeom, RM: int, RP: int) -> float:
+    """March cells per canvas cell, the reference's static C2M (fp32;
+    exactly 1.0 under warp_coarse)."""
+    return float(np.float32((RM - 1) / max(RP - 1, 1))
+                 / np.float32(cg.ratio))
 
 
 def _canvas_dims(cfg: SceneConfig, h_local: int):
@@ -89,13 +161,14 @@ def _canvas_dims(cfg: SceneConfig, h_local: int):
 
 def canvas_init(cfg: SceneConfig, h_local: int, device,
                 fused: bool = True) -> torch.Tensor:
-    """Padded canvas [4, Hc, Wc]: C = 0, T = 1, bf16 unless
+    """Padded canvas [4, Hc, Wx]: C = 0, T = 1, bf16 unless
     warp_canvas_fp32 (plain torch; the TPU version was no kernel).
     ``fused`` picks the layout of the composite that will consume it:
-    ``canvas_geom``'s or the unfused path's legacy dims."""
+    ``canvas_geom``'s (pixels or cells, always planes) or the unfused
+    path's legacy dims."""
     if fused:
         g = canvas_geom(cfg, h_local)
-        Hc, Wc = g.Hc, g.Wc
+        Hc, Wc = g.Hc, g.Wx
     else:
         _, _, Hc, Wc = _canvas_dims(cfg, h_local)
     cdt = torch.float32 if cfg.render.warp_canvas_fp32 else torch.bfloat16
@@ -127,12 +200,18 @@ def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
 # --------------------------------------------------------------------------
 # kernel A: warp_march
 
+# MarchParams.lit
+UNLIT, CENTER, PERSTEP = 0, 1, 2
+
+
 class MarchParams(ctypes.Structure):
     """Scalar parameters of the march kernels A and C (mirrors
-    ``MarchParams`` in csrc/warp_common.cuh).  ``lit``: center-lit (one
-    light sample at step ``mid``); ``RP`` / ``ratio_m``: the rect kernel
-    C upsamples to.  The float fields are fp32 roundings of the
-    reference's Python-double constants."""
+    ``MarchParams`` in csrc/warp_common.cuh).  ``lit``: ``UNLIT``,
+    ``CENTER`` (one light sample at step ``mid``) or ``PERSTEP`` (the
+    OVER recurrence over density and light slabs at every step);
+    ``RP`` / ``ratio_m``: the rect kernel C upsamples to.  The float
+    fields are fp32 roundings of the reference's Python-double
+    constants."""
     _fields_ = [(n, ctypes.c_int) for n in
                 ("N", "S", "VX", "V", "RM", "row_fan", "lit", "mid", "RP")] \
         + [(n, ctypes.c_float) for n in
@@ -147,7 +226,7 @@ def _ratio_m(RM: int, RP: int) -> float:
 
 def march_params(N: int, S: int, VX: int, V: int, RM: int, RP: int,
                  K: int, row_fan: bool, W: int, H: int,
-                 lit: bool = False) -> MarchParams:
+                 lit: int = UNLIT) -> MarchParams:
     ratio = (RP - 1.0) / max(RM - 1, 1)
     Kc = K / ratio
     return MarchParams(
@@ -204,6 +283,7 @@ def _march_fan_exp_plain(bank, vidx, pgeom, rx_u, ry_w, camf,
     f32 = torch.float32
     N, RM, S = p.N, p.RM, p.S
     wdt = bank.dtype
+    perstep = p.lit == PERSTEP
     col = lambda c: pgeom[:, c].reshape(N, 1, 1)      # noqa: E731
     lo_x, lo_y, lo_z = col(PG_LOX), col(PG_LOY), col(PG_LOZ)
     ext, scale, szn = col(PG_EXT), col(PG_SCALE), col(PG_SZN)
@@ -228,18 +308,31 @@ def _march_fan_exp_plain(bank, vidx, pgeom, rx_u, ry_w, camf,
     seg = torch.clamp(t1 - t0, min=0.0)
     geo = scale * torch.minimum(dt_raw, seg)
 
-    # telescoped march: od = sum_s sum_{a taps} rnd(t1[a]) * wx[a]
+    # march.  Telescoped (unlit, center-lit): od = sum_s sum_{a taps}
+    # rnd(t1[a]) * wx[a], ascending steps.  Per-step lit: both stacks
+    # sampled at every step and the OVER recurrence on (P1, T), the
+    # steps reversed for particles with szn < 0 (front to back).
     kx2 = torch.tensor(p.gscx, dtype=f32, device=dev) / ext
     ky2 = torch.tensor(p.gsc, dtype=f32, device=dev) / ext
     bx_h = (eye_x - lo_x) * kx2
     by_h = (eye_y - lo_y) * ky2
     stacks = bank[vidx.long()]                          # [N, S, VX, V]
     n_idx = torch.arange(N, device=dev).reshape(N, 1, 1)
-    od = torch.zeros((N, RM, RM), dtype=f32, device=dev)
-    tau = torch.zeros((N, RM, RM), dtype=f32, device=dev)
-    for s in range(S):
-        zeta = float(np.float32(np.float32(s) + np.float32(0.5))
-                     / np.float32(p.Sf))
+    zero = torch.zeros((N, RM, RM), dtype=f32, device=dev)
+    od, tau = zero, zero
+    if perstep:
+        lstacks = lbank[vidx.long()]
+        flip = szn < 0
+        n_flat = n_idx.reshape(N)
+        se = scale * ext
+        P1, T = zero, torch.ones_like(zero)
+    for si in range(S):
+        if perstep:
+            s_n = torch.where(flip, S - 1 - si, si)     # [N, 1, 1]
+            zeta = (s_n.to(f32) + 0.5) / Sf
+        else:
+            zeta = float(np.float32(np.float32(si) + np.float32(0.5))
+                         / np.float32(p.Sf))
         zw = lo_z + zeta * ext
         c1 = zw - eye_z
         gx = bx_h + (c1 * kx2) * rx                     # [N, 1, RM]
@@ -264,11 +357,20 @@ def _march_fan_exp_plain(bank, vidx, pgeom, rx_u, ry_w, camf,
                 acc = acc + t1v.to(wdt).to(f32) * wx
             return acc
 
-        od = sample(stacks[:, s], od)                   # slab [N, VX, V]
-        if p.lit and s == p.mid:
+        if perstep:
+            s_flat = s_n.reshape(N)
+            sig = sample(stacks[n_flat, s_flat], zero)
+            tau_s = sample(lstacks[n_flat, s_flat], zero)
+            alpha = 1.0 - torch.exp(-sig * geo)
+            atten = torch.exp(-se * torch.clamp(tau_s, min=0.0))
+            fa = T * alpha
+            P1 = P1 + fa * atten
+            T = T - fa
+            continue
+        od = sample(stacks[:, si], od)                  # slab [N, VX, V]
+        if p.lit == CENTER and si == p.mid:
             # center-lit: one light sample, this step's masked weights
-            tau = sample(lbank[vidx.long(), s], tau)
-    q = od * geo
+            tau = sample(lbank[vidx.long(), si], tau)
 
     # fan shift (closed form of render/warp.fan_shifts), column pass
     g1 = lambda c: pgeom[:, c].reshape(N, 1, 1)         # noqa: E731
@@ -302,8 +404,7 @@ def _march_fan_exp_plain(bank, vidx, pgeom, rx_u, ry_w, camf,
     du = torch.maximum(du, -ii)
     du = torch.minimum(du, p.rm_hi - ii)
     n_clamp = clamped.sum()
-    x = _shift(q, du, ii.expand_as(du), 2)
-
+    dw = None
     if p.row_fan:
         dox_i = ((sx0 + iv + 0.5) - pxc) * dxk          # [N, 1, RM(i)]
         oy_j = (1.0 - (sy0 + jv + 0.5) * p.two_over_H) * sys_
@@ -321,12 +422,21 @@ def _march_fan_exp_plain(bank, vidx, pgeom, rx_u, ry_w, camf,
         dw = torch.maximum(dw, -jj)
         dw = torch.minimum(dw, p.rm_hi - jj)
         n_clamp = n_clamp + clamped_y.sum()
-        x = _shift(x, dw, jj.expand_as(dw), 1)
 
-    P2m = 1.0 - torch.exp(-x)
-    P2m = torch.where(valid, P2m, torch.zeros_like(P2m))
-    P1m = P2m
-    if p.lit:
+    def fan(x):
+        x = _shift(x, du, ii.expand_as(du), 2)
+        return x if dw is None else _shift(x, dw, jj.expand_as(dw), 1)
+
+    if perstep:
+        # P2 = 1 - T; both planes go through the fan, no exp after it
+        P1m, P2m = fan(P1), fan(1.0 - T)
+        P1m = torch.where(valid, P1m, zero)
+    else:
+        P2m = 1.0 - torch.exp(-fan(od * geo))
+    P2m = torch.where(valid, P2m, zero)
+    if p.lit == UNLIT:
+        P1m = P2m
+    elif p.lit == CENTER:
         # the tau plane bypasses the fan: atten = exp(-tau') per ray
         taup = (scale * ext) * torch.clamp(tau, min=0.0)
         P1m = torch.exp(-taup) * P2m
@@ -369,7 +479,10 @@ def warp_march(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams,
     ``bank`` [M, S, VX, V] (bf16 or fp32 slab bank), ``vidx`` [N] int32,
     ``pgeom`` [N, PG_N] fp32, ``rx_u``/``ry_w`` [N, RM] fp32, ``camf``
     [16] fp32 (eye, right, up, fwd, scale_x, scale_y), ``lbank`` the
-    light slab bank (shape and type of ``bank``) when ``p.lit``.
+    light slab bank (shape and type of ``bank``) when ``p.lit``:
+    ``CENTER`` reads its slab ``p.mid`` only, ``PERSTEP`` every slab,
+    walking the steps back to front for particles with szn < 0
+    (``pgeom[:, PG_SZN]``) so one front-to-back recurrence serves all.
     Returns (P2m [N, RM, RM] -- lit: (P1m, P2m) [N, 2, RM, RM] -- fp32,
     clamp count [1] int32)."""
     dev = _check_march(bank, vidx, pgeom, rx_u, ry_w, camf, p, lbank)
@@ -401,16 +514,20 @@ warp_march.launches = 0
 # kernel B: warp_composite
 
 class CompositeParams(ctypes.Structure):
-    """Mirrors ``CompositeParams`` in csrc/warp_composite.cu."""
+    """Mirrors ``CompositeParams`` in csrc/warp_composite.cu.  ``Wc`` is
+    the canvas width in x units (``CanvasGeom.Wx``); ``gscale`` maps a
+    canvas offset from the placement origin to march cells: the rect
+    pixel -> march cell factor on a pixel canvas, the reference's C2M on
+    a cell canvas."""
     _fields_ = [(n, ctypes.c_int)
-                for n in ("N", "RM", "RP", "Hc", "Wc", "lit")] \
-        + [("ratio_m", ctypes.c_float)]
+                for n in ("N", "RM", "Hc", "Wc", "lit", "ilv")] \
+        + [("gscale", ctypes.c_float)]
 
 
-def composite_params(N: int, RM: int, RP: int, Hc: int, Wc: int,
-                     lit: bool = False) -> CompositeParams:
-    return CompositeParams(N=N, RM=RM, RP=RP, Hc=Hc, Wc=Wc, lit=int(lit),
-                           ratio_m=_ratio_m(RM, RP))
+def composite_params(N: int, RM: int, Hc: int, Wc: int, gscale: float,
+                     lit: bool = False, ilv: bool = False) -> CompositeParams:
+    return CompositeParams(N=N, RM=RM, Hc=Hc, Wc=Wc, lit=int(bool(lit)),
+                           ilv=int(ilv), gscale=_f32(gscale))
 
 
 def _taps(g, n: int, pdt):
@@ -419,43 +536,92 @@ def _taps(g, n: int, pdt):
     return k0, _hat(g, k0, n, pdt), _hat(g, k0 + 1, n, pdt)
 
 
+def _place_y(P, gy, pdt):
+    """y pass of the hat placement: planes P [..., RM, RM] fp32 rounded
+    to ``pdt``, rows sampled at march positions gy [h], the two products
+    summed in fp32 and rounded to ``pdt`` -> [..., h, RM].  A tap outside
+    the plane has weight 0."""
+    RM = P.shape[-1]
+    k0, w0, w1 = _taps(gy, RM, pdt)
+    ka, kb = k0.clamp(0, RM - 1), (k0 + 1).clamp(0, RM - 1)
+    P = P.to(pdt).to(torch.float32)
+    t = w0[:, None] * P[..., ka, :] + w1[:, None] * P[..., kb, :]
+    return t.to(pdt).to(torch.float32)
+
+
+def _place_x(t, gx, pdt):
+    """x pass: t [..., h, RM] sampled at march positions gx [w], weights
+    rounded to ``pdt``, summed in fp32 -> [..., h, w]."""
+    RM = t.shape[-1]
+    m0, v0, v1 = _taps(gx, RM, pdt)
+    ma, mb = m0.clamp(0, RM - 1), (m0 + 1).clamp(0, RM - 1)
+    return t[..., ma] * v0 + t[..., mb] * v1
+
+
 def _upsample_plain(P, RP: int, ratio_m: float, pdt):
     """Hat upsample of planes P [..., RM, RM] fp32 to [..., RP, RP]:
     the plane rounded to ``pdt``, the y pass summed in fp32 and rounded
     to ``pdt``, the x pass summed in fp32 (each weight row has two
     non-zero taps; the reference spells both passes as matmuls)."""
-    RM = P.shape[-1]
     pos = torch.arange(RP, dtype=torch.float32, device=P.device) * ratio_m
-    k0, w0, w1 = _taps(pos, RM, pdt)
-    k1 = (k0 + 1).clamp(max=RM - 1)
-    P = P.to(pdt).to(torch.float32)
-    t = w0[:, None] * P[..., k0, :] + w1[:, None] * P[..., k1, :]
-    t = t.to(pdt).to(torch.float32)                      # [..., RP, RM]
-    return t[..., k0] * w0 + t[..., k1] * w1             # [..., RP, RP]
+    return _place_x(_place_y(P, pos, pdt), pos, pdt)
 
 
-def warp_composite_plain(canvas, Pm, ayf, axf, cc, valid,
+def warp_composite_plain(canvas, Pm, ayf, axf, box, cc, valid,
                          p: CompositeParams, pdt, cc2=None):
     """Plain PyTorch version of kernel B: particle by particle in depth
-    order, the placed plane(s) of its rect and the OVER RMW of the
-    canvas (updated in place and returned)."""
+    order, its plane(s) placed over its box of the canvas and the OVER
+    RMW (canvas updated in place and returned).
+
+    Canvas cell (y, x) samples the planes at march position
+    ``(f32(y) - ayf) * gscale`` (x alike).  The reference forms that
+    offset against its 8- (128-) aligned window corner o as
+    ``iww - (ayf - o)`` with y = o + iww; both give one fp32 value:
+    ayf - o is exact (o is an integer in [0, ayf], so the difference is
+    a multiple of ayf's ulp and no larger than ayf), hence both are the
+    single rounding of the real number y - ayf."""
     f32 = torch.float32
-    RP = p.RP
     cdt = canvas.dtype
+    dev = canvas.device
+    rnd = lambda a: a.to(pdt).to(f32)                 # noqa: E731
     keep = valid.to(torch.bool).tolist()
-    y0s = ayf.to(torch.int64).tolist()
-    x0s = axf.to(torch.int64).tolist()
+    boxes = box.tolist()
+    npl = 2 if p.lit else 1
     for k in range(p.N):
-        if not keep[k]:
+        y0, y1, x0, x1 = boxes[k]
+        if not keep[k] or y1 <= y0 or x1 <= x0:
             continue
-        placed = _upsample_plain(Pm[k], RP, p.ratio_m, pdt)
-        ys = slice(y0s[k], y0s[k] + RP)
-        xs = slice(x0s[k], x0s[k] + RP)
+        gy = (torch.arange(y0, y1, dtype=f32, device=dev) - ayf[k]) * p.gscale
+        gx = (torch.arange(x0, x1, dtype=f32, device=dev) - axf[k]) * p.gscale
+        t = _place_y(Pm[k].reshape(npl, p.RM, p.RM), gy, pdt)
+        ys, xs = slice(y0, y1), slice(x0, x1)
         Tw = canvas[3, ys, xs].to(f32)
+        if p.ilv:
+            # colour coefficients folded into the unrounded x hats, the
+            # product rounded to pdt: W[m, c] = pdt(hat[m] * A[c]); then
+            # U[c] = sum over the P1 taps, then the P2 taps, in fp32
+            m0 = torch.floor(gx).to(torch.int64)
+            ma, mb = m0.clamp(0, p.RM - 1), (m0 + 1).clamp(0, p.RM - 1)
+            h0, h1 = _hat(gx, m0, p.RM, f32), _hat(gx, m0 + 1, p.RM, f32)
+            minus1 = torch.full((), -1.0, dtype=f32, device=dev)
+            for ch in range(4):
+                if p.lit:
+                    A1 = cc[k, ch] if ch < 3 else torch.zeros_like(minus1)
+                    A2 = cc2[k, ch] if ch < 3 else minus1
+                    U = ((t[0][:, ma] * rnd(h0 * A1)
+                          + t[0][:, mb] * rnd(h1 * A1))
+                         + t[1][:, ma] * rnd(h0 * A2)) \
+                        + t[1][:, mb] * rnd(h1 * A2)
+                else:
+                    A = cc[k, ch] if ch < 3 else minus1
+                    U = t[0][:, ma] * rnd(h0 * A) + t[0][:, mb] * rnd(h1 * A)
+                canvas[ch, ys, xs] = (canvas[ch, ys, xs].to(f32)
+                                      + Tw * U).to(cdt)
+            continue
+        placed = _place_x(t, gx, pdt)
+        T2 = Tw * placed[-1]
         if p.lit:
-            T1, T2 = Tw * placed[0], Tw * placed[1]
-        else:
-            T2 = Tw * placed
+            T1 = Tw * placed[0]
         for ch in range(3):
             upd = (cc[k, ch] * T1 + cc2[k, ch] * T2 if p.lit
                    else cc[k, ch] * T2)
@@ -464,19 +630,24 @@ def warp_composite_plain(canvas, Pm, ayf, axf, cc, valid,
     return canvas
 
 
-def warp_composite(canvas, Pm, ayf, axf, cc, valid, p: CompositeParams,
-                   pdt, cc2=None):
+def warp_composite(canvas, Pm, ayf, axf, box, cc, valid,
+                   p: CompositeParams, pdt, cc2=None):
     """Kernel B: OVER of the depth-ordered particles' placed planes onto
-    ``canvas`` [4, Hc, Wc] (bf16 or fp32; updated in place and
-    returned).  ``Pm`` fp32: P2m [N, RM, RM] unlit, (P1m, P2m)
-    [N, 2, RM, RM] when ``p.lit``; ``ayf``/``axf`` [N] fp32 rect origins
-    in canvas pixels; ``cc`` [N, 3] fp32 colour factors: alb*(lcol+amb)
-    unlit, alb*lcol lit with ``cc2`` = alb*amb; ``valid`` [N] int32;
-    ``pdt`` is the placement rounding type (the working dtype, fp32 when
-    RM == RP).  The per-pixel walk follows the list's order; the
-    reference's pair reorder only swaps depth-adjacent particles whose
-    canvas windows are disjoint, so it changes no pixel's order and has
-    no counterpart here."""
+    ``canvas`` [4, Hc, Wc] (bf16 or fp32; pixels or cells; updated in
+    place and returned).  ``Pm`` fp32: P2m [N, RM, RM] unlit, (P1m, P2m)
+    [N, 2, RM, RM] when ``p.lit``; ``ayf``/``axf`` [N] fp32 placement
+    origins in canvas units (fractional on a cell canvas); ``box``
+    [N, 4] int32 (y0, y1, x0, x1): the canvas cells the particle may
+    touch (``warp.placement_boxes``); ``cc`` [N, 3] fp32 colour factors:
+    alb*(lcol+amb) unlit, alb*lcol lit with ``cc2`` = alb*amb; ``valid``
+    [N] int32; ``pdt`` is the placement rounding type (the working
+    dtype; fp32 for RM == RP on a pixel canvas).  ``p.ilv`` selects
+    ``warp_interleave``'s association: the colour factors (and -1 for
+    T) multiply the x hat weights before these are rounded, and all four
+    channels update as ``cdt(c + Tw * U)``.  The per-pixel walk follows
+    the list's order; the reference's pair and hazard reorders only swap
+    depth-adjacent particles whose canvas windows are disjoint, so they
+    change no pixel's order and have no counterpart here."""
     dev = canvas.device
     N, RM = p.N, p.RM
     _check(canvas, "canvas", (torch.bfloat16, torch.float32),
@@ -485,6 +656,7 @@ def warp_composite(canvas, Pm, ayf, axf, cc, valid, p: CompositeParams,
            (N, 2, RM, RM) if p.lit else (N, RM, RM), dev)
     _check(ayf, "ayf", (torch.float32,), (N,), dev)
     _check(axf, "axf", (torch.float32,), (N,), dev)
+    _check(box, "box", (torch.int32,), (N, 4), dev)
     _check(cc, "cc", (torch.float32,), (N, 3), dev)
     if p.lit:
         if cc2 is None:
@@ -496,17 +668,17 @@ def warp_composite(canvas, Pm, ayf, axf, cc, valid, p: CompositeParams,
     if pdt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"placement dtype {pdt} not supported")
     if dev.type != "cuda":
-        return warp_composite_plain(canvas, Pm, ayf, axf, cc, valid, p,
-                                    pdt, cc2)
+        return warp_composite_plain(canvas, Pm, ayf, axf, box, cc, valid,
+                                    p, pdt, cc2)
     from volq_torch.render._build import load
     fn = load("warp_composite").warp_composite_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int] + [ctypes.c_void_p] * 5 \
+                   ctypes.c_int] + [ctypes.c_void_p] * 6 \
         + [CompositeParams, ctypes.c_void_p]
     err = fn(_ptr(canvas), int(canvas.dtype == torch.bfloat16), _ptr(Pm),
-             int(pdt == torch.bfloat16), _ptr(ayf), _ptr(axf), _ptr(cc),
-             _ptr(cc2), _ptr(valid), p, _stream(dev))
+             int(pdt == torch.bfloat16), _ptr(ayf), _ptr(axf), _ptr(box),
+             _ptr(cc), _ptr(cc2), _ptr(valid), p, _stream(dev))
     if err:
         raise RuntimeError(f"warp_composite launch failed: CUDA error {err}")
     warp_composite.launches += 1

@@ -16,14 +16,21 @@ depth (a stable sort of view-z, invalid last), then
 
 and finish the canvas over the background (``_canvas_finish``).
 
-The slice ported so far is the production mode of c3 and c4:
-perspective camera, static volumes, slab banks, unlit or center-lit
-(``light_mode="center"``: one sample of the baked light volume per ray
-at the particle's mid-depth step), fused or unfused.  ``check_supported``
-raises NotImplementedError for every other mode.  Flags that change
-neither the image nor this path are accepted: ``warp_pair`` and
+The slice ported so far is every mode of the Pallas warp engine under a
+perspective camera: static or animated volumes, slab banks, unlit,
+center-lit (``light_mode="center"``: one sample of the baked light
+volume per ray at the particle's mid-depth step) or per-step lit
+(``light_mode="march"``), fused or unfused, on a pixel canvas or the
+cell canvas of ``warp_coarse`` / ``warp_canvas_scale``, with or without
+``warp_interleave``'s association, in one piece or in ``warp_bands``
+horizontal bands.  ``check_supported`` raises NotImplementedError for
+the rest (other engines, the XLA warp path, ortho cameras).  Flags that
+change neither the image nor this path are accepted: ``warp_pair`` and
 ``warp_pack`` (TPU MXU-tile pairing and grid packing, bit-identical),
-``warp_chunk`` (XLA-path chunking), ``warp_swap_bf16`` (sharded wire).
+``warp_canvas_vmem`` (where the TPU keeps its canvas: storage only),
+``warp_hazard_passes`` (a reorder of depth-adjacent particles with
+disjoint canvas windows: no pixel's order changes), ``warp_chunk``
+(XLA-path chunking), ``warp_swap_bf16`` (sharded wire).
 The port always marches from pre-lerped slab banks: where the reference
 would stream volumes instead (``use_slab_banks`` False) its in-kernel
 lerp is the same math, and only the x-resample (``slab_vx_eff``) depends
@@ -54,26 +61,17 @@ _MARCH_PERMS = {
 
 
 def check_supported(cfg: SceneConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for any flag
-    outside the ported slice (no flag is silently ignored)."""
+    """Raise NotImplementedError, naming the ROADMAP item, for any mode
+    outside the ported slice (no flag is silently ignored; which flag
+    combinations are valid at all is ``scene/config.py``'s check)."""
     r = cfg.render
     unsupported = [
         (r.engine != "warp", f"render engine {r.engine!r}",
          "Queue 1 items 10-11"),
         (not r.warp_pallas, "warp_pallas=False (the XLA warp path)",
          "Queue 1 item 5"),
-        (r.light_steps > 0 and r.light_mode != "center",
-         f"per-step lit marches (light_mode={r.light_mode!r} with "
-         "light_steps > 0)", "Queue 2 item 1"),
-        (bool(r.warp_coarse), "warp_coarse", "Queue 2 item 1"),
-        (bool(r.warp_canvas_scale), "warp_canvas_scale", "Queue 2 item 1"),
-        (bool(r.warp_interleave), "warp_interleave", "Queue 2 item 1"),
-        (bool(r.warp_canvas_vmem), "warp_canvas_vmem", "Queue 2 item 1"),
-        (r.warp_bands > 1, "warp_bands > 1", "Queue 2 item 1"),
-        (r.warp_hazard_passes > 0, "warp_hazard_passes", "Queue 2 item 1"),
         (cfg.camera.projection != "persp", "orthographic camera",
          "Queue 1 items 4-5"),
-        (cfg.volume.animated, "animated (4-D) volumes", "Queue 1 item 3"),
     ]
     for bad, what, item in unsupported:
         if bad:
@@ -359,21 +357,75 @@ def _grid_geometry(particles: Particles, camera: Camera, cfg: SceneConfig,
 
 
 def _window_corners(sy0, sx0, cg: K.CanvasGeom, y_start: int):
-    """Each particle's canvas placement origin (ayf, axf) in canvas
-    pixels: pad + rect origin.  (The reference also returns its TPU
-    window's aligned corners; the port composites per pixel.)"""
-    ayf = float(cg.pad) + (sy0.to(torch.float32) - float(y_start))
-    axf = float(cg.pad) + sx0.to(torch.float32)
-    return ayf, axf
+    """Each particle's canvas placement origin (ayf, axf: pad + rect
+    origin * ratio, fp32, fractional on a cell canvas) and the corner
+    (oy rows, ox x-units) of the aligned canvas window the reference's
+    kernel updates for it.  (The reference returns ox in array elements,
+    ``e`` per x unit.)"""
+    f32 = torch.float32
+    ayf = float(cg.pad) + (sy0.to(f32) - float(y_start)) * cg.ratio
+    axf = float(cg.pad) + sx0.to(f32) * cg.ratio
+    oy = torch.clamp(torch.floor(ayf).to(torch.int32), 0, cg.Hc - cg.WH)
+    oy = torch.div(oy, 8, rounding_mode="floor") * 8
+    ox = torch.clamp(torch.floor(axf).to(torch.int32), 0,
+                     (cg.Wc - cg.WW) // cg.e)
+    ox = torch.div(ox, cg.gx, rounding_mode="floor") * cg.gx
+    return ayf, axf, oy, ox
+
+
+def placement_boxes(ayf, axf, oy, ox, cg: K.CanvasGeom, c2m: float):
+    """[N, 4] int32 (y0, y1, x0, x1): the canvas cells kernel B lets each
+    particle touch.  On a pixel canvas the RP x RP rect at (ayf, axf);
+    on a cell canvas a box generous enough for the hat tent (the tent,
+    not the box, decides the weights: ``1 / c2m`` cells leak past each
+    end of the placed content).  Either is cut to the window the
+    reference's kernel reads and writes -- rows [oy, oy + WH), columns
+    [ox, ox + WW / e), or only the window's first WWA / e columns where
+    the reference skips the rest (its ``wide`` flag) -- which binds only
+    where the reference itself drops a sliver of the tent."""
+    fy = torch.floor(ayf).to(torch.int32)
+    fx = torch.floor(axf).to(torch.int32)
+    if cg.cells:
+        leak = int(np.ceil(1.0 / c2m))
+        lo, hi = -leak, cg.sup + leak + 1
+    else:
+        lo, hi = 0, cg.cu
+    wide = cg.e * ((axf - ox.to(torch.float32)) + cg.sup) > cg.WWA
+    ww = torch.where(wide, cg.WW // cg.e, cg.WWA // cg.e).to(torch.int32)
+    return torch.stack([torch.maximum(fy + lo, oy),
+                        torch.minimum(fy + hi, oy + cg.WH),
+                        torch.maximum(fx + lo, ox),
+                        torch.minimum(fx + hi, ox + ww)], dim=1).contiguous()
+
+
+def _cell_upsample(X, P: int, ratio: float, dim: int):
+    """Bilinear cell -> pixel upsample of X along ``dim`` to P pixels:
+    pixel p reads cell position p * ratio through hat weights (the
+    reference's ``_coarse_up_weights`` product; each weight row has two
+    non-zero taps, gathered here, products and sum in fp32)."""
+    Cn = X.shape[dim]
+    pos = torch.arange(P, dtype=torch.float32, device=X.device) * ratio
+    c0, w0, w1 = K._taps(pos, Cn, torch.float32)
+    shape = [1] * X.dim()
+    shape[dim] = P
+    return (X.index_select(dim, c0) * w0.reshape(shape)
+            + X.index_select(dim, (c0 + 1).clamp(max=Cn - 1))
+            * w1.reshape(shape))
 
 
 def _canvas_finish(C, T, cfg: SceneConfig, h_local: int):
     """Crop the padded canvas and compose over the background ->
-    [h_local, W, 4] fp32 (premultiplied RGB, alpha)."""
+    [h_local, W, 4] fp32 (premultiplied RGB, alpha).  A cell canvas
+    (warp_coarse / warp_canvas_scale) is first upsampled to pixels, rows
+    then columns, one pass per frame."""
     r = cfg.render
-    RP = r.warp_rect
-    C = C[:, RP:RP + h_local, RP:RP + r.width].to(torch.float32)
-    T = T[RP:RP + h_local, RP:RP + r.width].to(torch.float32)
+    g = K.canvas_geom(cfg, h_local)
+    X = torch.cat([C, T[None]], dim=0)[
+        :, g.pad:g.pad + g.hc_img, g.pad:g.pad + g.wc_img].to(torch.float32)
+    if g.cells:
+        X = _cell_upsample(X, h_local, g.ratio, 1)
+        X = _cell_upsample(X, r.width, g.ratio, 2)
+    C, T = X[:3], X[3]
     bg = torch.tensor(r.background, dtype=torch.float32,
                       device=C.device)[:, None, None]
     rgb = C + T[None] * bg
@@ -392,6 +444,16 @@ def _take(particles: Particles, geom, ids):
     return (particles._replace(**{f: getattr(particles, f)[ids]
                                   for f in Particles._fields}),
             {k: v[ids] for k, v in geom.items()})
+
+
+def light_mode(cfg: SceneConfig, lbank) -> int:
+    """``kernel.MarchParams.lit`` for a march with (or without) the light
+    slab bank: the per-step lit march walks each particle's steps front
+    to back, reversed where ``szn < 0`` (the kernels read the flag from
+    ``pgeom[:, PG_SZN]``)."""
+    if lbank is None:
+        return K.UNLIT
+    return K.CENTER if cfg.render.light_mode == "center" else K.PERSTEP
 
 
 def _march_inputs(po: Particles, go, camera: Camera, cfg: SceneConfig,
@@ -421,7 +483,7 @@ def _march_inputs(po: Particles, go, camera: Camera, cfg: SceneConfig,
     mp = K.march_params(N, r.steps, bank.shape[2], bank.shape[-1],
                         march_rect(cfg), r.warp_rect, r.warp_shift_max,
                         needs_row_fan(cfg), r.width, r.height,
-                        lit=lbank is not None)
+                        lit=light_mode(cfg, lbank))
     return (bank.contiguous(), po.vol_idx.to(torch.int32), pgeom,
             go["rx_u"].contiguous(), go["ry_w"].contiguous(), camf, mp,
             None if lbank is None else lbank.contiguous())
@@ -431,7 +493,8 @@ def fused_inputs(particles: Particles, camera: Camera, light: Light,
                  cfg: SceneConfig, bank, y_start: int, h_local: int,
                  lbank=None):
     """Everything kernels A and B take for one frame, in depth order;
-    ``lbank`` (the light slab bank) switches the center-lit mode on.
+    ``lbank`` (the light slab bank) switches the lit mode on (center or
+    per-step, ``cfg.render.light_mode``).
     Returns (march args tuple, composite args tuple -- without the
     canvas --, stats)."""
     r = cfg.render
@@ -445,17 +508,21 @@ def fused_inputs(particles: Particles, camera: Camera, light: Light,
     f32 = torch.float32
     lit = lbank is not None
     cg = K.canvas_geom(cfg, h_local)
-    ayf, axf = _window_corners(go["sy0"], go["sx0"], cg, y_start)
+    c2m = K.cell_to_march(cg, RM, RP)
+    ayf, axf, oy, ox = _window_corners(go["sy0"], go["sx0"], cg, y_start)
+    box = placement_boxes(ayf, axf, oy, ox, cg, c2m)
     alb = po.albedo.to(f32)
     if lit:
         cc, cc2 = alb * light.color[None], alb * light.ambient[None]
     else:
         cc, cc2 = alb * (light.color + light.ambient)[None], None
     wdt = f32 if r.warp_fp32 else torch.bfloat16
-    pdt = f32 if RM == RP else wdt
-    comp = (ayf, axf, cc.contiguous(), go["valid"].to(torch.int32),
-            K.composite_params(N, RM, RP, cg.Hc, cg.Wc, lit), pdt,
-            None if cc2 is None else cc2.contiguous())
+    pdt = f32 if RM == RP and not cg.cells else wdt
+    cp = K.composite_params(N, RM, cg.Hc, cg.Wx,
+                            c2m if cg.cells else K._ratio_m(RM, RP),
+                            lit, cg.ilv)
+    comp = (ayf, axf, box, cc.contiguous(), go["valid"].to(torch.int32), cp,
+            pdt, None if cc2 is None else cc2.contiguous())
     return march, comp, stats
 
 
@@ -517,7 +584,9 @@ def render_warp_canvas(particles: Particles, volumes, camera: Camera,
     without the final crop.  Returns (canvas [4, Hc, Wc] -- premultiplied
     C in [:3], T in [3] --, stats).  ``light_volumes`` (the baked light
     optical depth, ``volume.lightbake``) switches the lit march on when
-    ``light_steps > 0``; with ``warp_fused=False`` the particles go
+    ``light_steps > 0`` (center or per-step, ``light_mode``); with
+    ``warp_coarse`` / ``warp_canvas_scale`` the canvas is in cells
+    (``kernel.CanvasGeom``); with ``warp_fused=False`` the particles go
     through depth-sorted megachunks of at most ``warp_mega`` (march a
     chunk into images, composite it onto the carried canvas, next
     chunk).
@@ -527,9 +596,12 @@ def render_warp_canvas(particles: Particles, volumes, camera: Camera,
     ``pair_inactive`` count stalls and envelope misses of its TPU window
     pipeline and MXU pairing (they depend on VMEM residency) and have no
     counterpart here.  ``warp_pair``'s composite reorder
-    (``_pair_swap_order``) only swaps depth-adjacent particles whose
-    canvas windows are disjoint, so no pixel's order changes and the
-    image is the unpaired one."""
+    (``_pair_swap_order``) and ``warp_hazard_passes``' (``_hazard_swap_
+    order``) only swap depth-adjacent particles whose canvas windows are
+    disjoint, so no pixel's order changes and the image is the
+    unreordered one; ``warp_canvas_vmem`` moves the TPU's canvas into
+    on-chip memory, storage only.  All three are accepted and change
+    nothing here."""
     check_supported(cfg)
     r = cfg.render
     if h_local is None:
@@ -562,14 +634,44 @@ def render_warp_canvas(particles: Particles, volumes, camera: Camera,
     return canvas, dict(stats, shift_clamped=shift_clamped)
 
 
+def _merge_band_stats(a, b):
+    """Counters sum across bands (a particle straddling a boundary
+    renders in each band it touches, so ``rendered`` counts render
+    slots); ``alive`` is scene-global and the same in every band."""
+    return {k: (v if k == "alive" else v + b[k]) for k, v in a.items()}
+
+
 def render_warp(particles: Particles, volumes, camera: Camera, light: Light,
                 cfg: SceneConfig, light_volumes=None, y_start: int = 0,
                 h_local: int | None = None, slab_banks=None):
-    """Render one frame with the warp engine.  Returns ([h_local, W, 4]
-    fp32 image, stats)."""
+    """Render one frame (or a horizontal pixel band of it) with the warp
+    engine.  Returns ([h_local, W, 4] fp32 image, stats).
+
+    ``warp_bands > 1`` renders the frame as that many horizontal bands
+    of ``height // bands`` (+ 1) rows, each through its own canvas and
+    kernel launches, and stacks the rows: the bands hold disjoint
+    pixels and per-pixel compositing is the same math, so the image is
+    exactly the unbanded one.  The slab banks are baked once for all
+    bands."""
     r = cfg.render
     if h_local is None:
         h_local = r.height
+    if light_volumes is not None and r.light_steps <= 0:
+        light_volumes = None       # no light march requested: unlit
+    bands = int(r.warp_bands)
+    if bands > 1 and y_start == 0 and h_local == r.height:
+        if slab_banks is None:
+            slab_banks = bake_slab_banks(volumes, light_volumes, cfg)
+        rows, stats, y0 = [], None, 0
+        for i in range(bands):
+            bh = r.height // bands + (1 if i < r.height % bands else 0)
+            img, st = render_warp(particles, volumes, camera, light, cfg,
+                                  light_volumes=light_volumes, y_start=y0,
+                                  h_local=bh, slab_banks=slab_banks)
+            rows.append(img)
+            stats = st if stats is None else _merge_band_stats(stats, st)
+            y0 += bh
+        return torch.cat(rows, dim=0), stats
     canvas, stats = render_warp_canvas(particles, volumes, camera, light,
                                        cfg, light_volumes=light_volumes,
                                        y_start=y_start, h_local=h_local,

@@ -1,6 +1,5 @@
 """Scene construction (mirror of ``volq/scene/state.py``): config ->
-initial SceneState + numeric camera/light, on an explicit device.
-(Animated 4-D volumes are not ported yet.)"""
+initial SceneState + numeric camera/light, on an explicit device."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,7 +10,7 @@ from volq_torch.core.types import Particles, SceneState, Camera, Light
 from volq_torch.scene.config import SceneConfig, LightConfig, CameraConfig
 from volq_torch.sim import prng
 from volq_torch.sim.emit import spawn_attrs
-from volq_torch.volume.bake import bake_bank
+from volq_torch.volume.bake import bake_bank, bake_bank_4d
 
 
 def build_camera(ccfg: CameraConfig, width: int, height: int,
@@ -32,12 +31,15 @@ def build_light(lcfg: LightConfig, device="cpu") -> Light:
                      device)
 
 
-def bake_volumes(cfg: SceneConfig, device="cpu"):
+def bake_volumes(cfg: SceneConfig, device="cpu", t=0.0):
+    """The scene's volume bank: static, or (``volume.animated``) the 4-D
+    bank at simulation time ``t``."""
     v = cfg.volume
     if v.animated:
-        raise NotImplementedError(
-            "animated (4-D) volumes are not ported yet (ROADMAP Queue 1 "
-            "item 3: bake_bank_4d)")
+        return bake_bank_4d(v.bank_size, v.size, v.seed, t,
+                            octaves=v.octaves, noise_scale=v.noise_scale,
+                            time_scale=v.time_scale, cutoff=v.cutoff,
+                            edge=v.edge, device=device)
     return bake_bank(v.bank_size, v.size, v.seed, octaves=v.octaves,
                      noise_scale=v.noise_scale, cutoff=v.cutoff,
                      edge=v.edge, device=device)

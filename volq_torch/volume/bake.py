@@ -1,5 +1,6 @@
-"""Density-volume baking (mirror of ``volq/volume/bake.py``, static
-banks only; the 4-D animated bake is not ported yet).
+"""Density-volume baking (mirror of ``volq/volume/bake.py``): static
+banks from 3-D noise and the time-animated bank of 4-D noise, which the
+frame loop re-bakes from the simulation time every frame.
 
 fBm noise over a voxel lattice, carved by a radial falloff into a puff
 that reaches zero before the AABB faces.  A bank is [M, V, V, V] with
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from volq_torch.volume.noise import fbm3, _hash_base, _u2f
+from volq_torch.volume.noise import fbm3, fbm4, _hash_base, _u2f
 
 # voxels per bake chunk: ~2^25 keeps the int64 hash temporaries of one
 # chunk at a few GB on the card (16 entries of 128^3)
@@ -52,10 +53,10 @@ def _shape_density(n, r2, cutoff: float, edge: float = 0.9):
     return torch.clamp(d, max=1.0)
 
 
-def bake_bank(bank_size: int, size: int, seed: int, *, octaves: int = 4,
-              noise_scale: float = 4.0, cutoff: float = 0.3,
-              edge: float = 0.9, dtype=torch.bfloat16, device="cpu"):
-    """Bake a static volume bank [bank_size, V, V, V] on ``device``."""
+def _bake(bank_size: int, size: int, seed: int, noise_of, noise_scale,
+          cutoff, edge, dtype, device):
+    """The chunked bake both banks share: ``noise_of(xyz [k, V, V, V, 3],
+    ids [k])`` -> fBm [k, V, V, V]."""
     u = _lattice(size, device)
     r2 = _radius2(u)
     out = torch.empty((bank_size, size, size, size), dtype=dtype,
@@ -64,8 +65,37 @@ def bake_bank(bank_size: int, size: int, seed: int, *, octaves: int = 4,
     for c0 in range(0, bank_size, chunk):
         ids = torch.arange(c0, min(c0 + chunk, bank_size), device=device)
         off = _volume_offsets(ids, seed)                    # [k, 3]
-        p = ((u - 0.5) * noise_scale)[None] + off[:, None, None, None]
-        n = fbm3(p, seed, octaves=octaves)
-        out[c0:c0 + ids.shape[0]] = \
-            _shape_density(n, r2[None], cutoff, edge).to(dtype)
+        xyz = ((u - 0.5) * noise_scale)[None] + off[:, None, None, None]
+        out[c0:c0 + ids.shape[0]] = _shape_density(
+            noise_of(xyz, ids), r2[None], cutoff, edge).to(dtype)
     return out
+
+
+def bake_bank(bank_size: int, size: int, seed: int, *, octaves: int = 4,
+              noise_scale: float = 4.0, cutoff: float = 0.3,
+              edge: float = 0.9, dtype=torch.bfloat16, device="cpu"):
+    """Bake a static volume bank [bank_size, V, V, V] on ``device``."""
+    return _bake(bank_size, size, seed,
+                 lambda xyz, ids: fbm3(xyz, seed, octaves=octaves),
+                 noise_scale, cutoff, edge, dtype, device)
+
+
+def bake_bank_4d(bank_size: int, size: int, seed: int, t, *,
+                 octaves: int = 3, noise_scale: float = 4.0,
+                 time_scale: float = 0.5, cutoff: float = 0.3,
+                 edge: float = 0.9, dtype=torch.bfloat16, device="cpu"):
+    """Bake a time-animated bank from 4-D noise at simulation time ``t``
+    (a float or a 0-d tensor, used as fp32).  Entry ``e`` samples the
+    time coordinate ``t * time_scale + u2f(hash(e, 3e+1, 5e+2,
+    seed+202)) * 16``, so the entries drift out of phase."""
+    t = torch.as_tensor(t, dtype=torch.float32, device=device)
+
+    def noise_of(xyz, ids):
+        eid = ids.to(torch.int32).long()
+        w = t * time_scale + _u2f(
+            _hash_base(eid, eid * 3 + 1, eid * 5 + 2, seed + 202)) * 16.0
+        w = w[:, None, None, None, None].expand(*xyz.shape[:-1], 1)
+        return fbm4(torch.cat([xyz, w], dim=-1), seed, octaves=octaves)
+
+    return _bake(bank_size, size, seed, noise_of, noise_scale, cutoff, edge,
+                 dtype, device)

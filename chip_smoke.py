@@ -6,9 +6,25 @@
 Phases (any failure raises, and the script exits non-zero without the
 final result line):
   1. print the card (nvidia-smi name, power limit) and torch/CUDA versions;
-  2. build the four kernels (every mode of each is in its one source) from
-     volq_torch/csrc/ (one nvcc per source, in parallel) and print the
-     build seconds;
+  2. build the seven kernels (every mode of each is in its one source)
+     from volq_torch/csrc/ (one nvcc per source, in parallel) and print
+     the build seconds;
+  2a. the probes: hold probe_mma against its fp64 plain version within
+     1e-4 of max |out| (G 4 at the stack depth R of the timed launches,
+     five shapes incl. a ragged M and a K that streams, nacc 1 and 8, 1 and
+     132 blocks), probe_stage bit-equal (K 1,
+     4, 12, with small and const stacks) and probe_window bit-equal on the
+     reference's 4096 windows of a 1088 x 2048 canvas at every alignment;
+     then run the probes' entry point (python -m volq_torch.probe, in
+     process) from zeroed launch counters: every probe must have launched,
+     and no printed tensor-core rate may exceed the card's 989 TFLOP/s;
+  2b. the command line, in process, on the card: preset c1 as shipped (the
+     exact engine), 2 frames with --png --npy --checkpoint, then --resume
+     for one more frame, which must equal the third frame of an
+     uninterrupted 3-frame run; c1's first frame against the same frame
+     with --device cpu within 1e-5; preset c2 as shipped (512 x 512 warp)
+     from zeroed counters, which must show launches of A and B and a
+     plausible image;
   3. set up preset c3 at full size (1024 particles, 1024 x 128^3 bank,
      1920x1080) and bake its slab banks;
   4. hold kernels A (warp_march) and B (warp_composite) against their
@@ -19,8 +35,12 @@ final result line):
   5. drive c3's main path: frames(n=8) from zeroed launch counters, which
      must show one launch of A and B per frame, a finite image with a
      plausible alpha range and rendered particles; time each kernel and
-     its plain version at the main path's inputs, and the frame loop
-     with engine.loop.time_frames on the state already set up;
+     its plain version at the main path's inputs (B's plain version walks
+     the frame's particles once: that walk is timed and its canvas must
+     equal the kernel's, here and on every later path), and the frame loop
+     with engine.loop.time_frames on the state already set up; then the
+     command line's --bench --frames 16 --frames-per-launch 8 on that same
+     state (its one JSON line parsed, mrays_per_s > 0);
   6. set up preset c4 at full size (4096 particles, 64 x 64^3 bank,
      center-lit: the light bake and both slab banks);
   7. hold A and B in center-lit mode (two planes) and the unfused pair,
@@ -52,33 +72,44 @@ final result line):
  11. set up preset c5 at full size (16384 particles, 16 x 64^3 bank baked
      from 4-D noise, 3840x2160, coarse + interleaved cell canvas,
      center-lit); time the three bakes every c5 frame holds (4-D bank,
-     light bank, slab banks); hold A and B at c5's shapes (every particle
-     of a frame) in bf16 (c5's mode) and fp32, then each of B's new modes
-     alone on a depth-contiguous run of 4096 particles (cell canvas
-     without the interleaved association, and the interleaved association
-     on a pixel canvas); drive frames(n=4) from
-     zeroed counters (A 1, B 1 per frame; every frame re-bakes the
-     bank), check the image, time the kernels and the loop;
- 12. print the kernels JSON line (per kernel: launches, error, ms, plain
-     ms and bound on the c4 path, with the c3, c4 per-step and c5 paths'
-     numbers under "c3", "c4_perstep" and "c5"), the card line, and last
-     the result line {"ok": true, "device": {...}}.
+     light bank, slab banks); hold A at c5's shapes (every particle of a
+     frame) in bf16 (c5's mode) and fp32, and B in both on the densest
+     depth-contiguous run of 4096 particles (its plain version walks the
+     16384 particles of a whole frame in most of a minute), then each of
+     B's new modes alone on such a run (cell canvas without the
+     interleaved association, and the interleaved association on a pixel
+     canvas); drive frames(n=4) from zeroed counters (A 1, B 1 per frame;
+     every frame re-bakes the bank), check the image, time the kernels and
+     the loop: the one timed walk of B's plain version holds B on every
+     particle of a c5 frame;
+ 12. print the kernels JSON line, seven entries (per warp kernel:
+     launches, error, ms, plain ms and bound on the c4 path, with the c3,
+     c4 per-step and c5 paths' numbers under "c3", "c4_perstep" and "c5";
+     per probe kernel: launches of the probes' run, error, and ms, plain
+     ms, bound and -- probe_mma -- the time of one torch.matmul over the
+     same operands at one named point), the card line, and last the result
+     line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device
 it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM data-sheet peaks (NVIDIA's data sheet): HBM rate and the
 # fp32 rate outside the tensor cores (the kernels are fp32 CUDA-core code)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12    # dense, tensor cores
 N_FRAMES = 8
 N_FRAMES_UNFUSED = 4
 N_FRAMES_C5 = 4
@@ -89,6 +120,9 @@ RUN = 4096
 BF16_BUDGET = 6 / 256
 FP32_BUDGET = 1e-4
 NAMES = ("warp_march", "warp_composite", "warp_images", "composite_chunk")
+PROBES = ("probe_mma", "probe_stage", "probe_window")
+# probe_mma against its fp64 plain version, relative to max |out|
+MMA_TOL = 1e-4
 
 
 def _card_line() -> str:
@@ -99,9 +133,12 @@ def _card_line() -> str:
     return out.splitlines()[0]
 
 
-def _cuda_ms(fn, reps: int) -> float:
+def _cuda_ms(fn, reps: int, warm: bool = True) -> float:
+    """Device ms per call of ``fn`` (``warm=False``: no untimed first call,
+    for the plain versions that are seconds-long Python loops)."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -139,10 +176,13 @@ def _mode(cfg) -> str:
 
 
 def _wrappers():
+    from volq_torch import probe
     from volq_torch.render import kernel as K
     return {"warp_march": K.warp_march, "warp_composite": K.warp_composite,
             "warp_images": K.warp_images,
-            "composite_chunk": K.composite_chunk}
+            "composite_chunk": K.composite_chunk,
+            "probe_mma": probe.mma_probe, "probe_stage": probe.stage_probe,
+            "probe_window": probe.window_probe}
 
 
 def _zero_counts():
@@ -206,9 +246,11 @@ def check_composite(tag, c, Pm, comp, errs, run=None):
     errs["warp_composite"] = max(errs["warp_composite"], d)
 
 
-def check_fused(tag, state, camera, light, cfg, lv, errs):
+def check_fused(tag, state, camera, light, cfg, lv, errs, run=None):
     """Kernels A and B vs their plain versions at every particle of a
-    frame, in the preset's mode and in fp32 (lit when ``lv`` is given)."""
+    frame, in the preset's mode and in fp32 (lit when ``lv`` is given).
+    ``run``: B's plain walk takes only the densest depth-contiguous run of
+    that many particles (time_fused holds B on the whole frame)."""
     import torch
     from volq_torch.render import kernel as K
     from volq_torch.render.warp import fused_inputs, bake_slab_banks
@@ -234,7 +276,7 @@ def check_fused(tag, state, camera, light, cfg, lv, errs):
             assert shadow > 0.01, "the light sample changed nothing"
         errs["warp_march"] = max(errs["warp_march"], err)
         del pp
-        check_composite(tag, c, pk, comp, errs)
+        check_composite(tag, c, pk, comp, errs, run=run)
 
 
 def check_unfused(tag, state, camera, light, cfg, lv, errs):
@@ -403,10 +445,13 @@ def same_image(tag, state, camera, light, cfg, ucfg, lv, sb):
         assert d <= budget, f"fused and unfused {tag} images differ by {d}"
 
 
-def time_fused(tag, state, camera, light, cfg, sb, card):
+def time_fused(tag, state, camera, light, cfg, sb, card, errs):
     """ms of A, B and their plain versions at the state's inputs, and
     their bounds.  ``sb`` None (animated scenes): the state's banks are
-    baked here, as the frame does."""
+    baked here, as the frame does.  B's plain version walks every particle
+    of the frame once: that one walk is timed and its canvas must equal
+    the kernel's."""
+    import torch
     from volq_torch.engine import loop
     from volq_torch.render import kernel as K
     from volq_torch.render.warp import fused_inputs, bake_slab_banks
@@ -417,13 +462,26 @@ def time_fused(tag, state, camera, light, cfg, sb, card):
     march, comp, _ = fused_inputs(state.particles, camera, light, cfg,
                                   sb[0], 0, H, sb[1])
     Pm, _ = K.warp_march(*march)
-    canvas = K.canvas_init(cfg, H, Pm.device)
+    blank = K.canvas_init(cfg, H, Pm.device)
+    canvas = blank.clone()      # B updates it in place, launch after launch
     ms = {"warp_march": _cuda_ms(lambda: K.warp_march(*march), 20),
           "warp_composite": _cuda_ms(
               lambda: K.warp_composite(canvas, Pm, *comp), 20)}
+    walked = []
     plain = {"warp_march": _cuda_ms(lambda: K.warp_march_plain(*march), 3),
              "warp_composite": _cuda_ms(
-                 lambda: K.warp_composite_plain(canvas, Pm, *comp), 1)}
+                 lambda: walked.append(K.warp_composite_plain(
+                     blank.clone(), Pm, *comp)), 1, warm=False)}
+    out_k = K.warp_composite(blank.clone(), Pm, *comp)
+    d = float((out_k.float() - walked[0].float()).abs().max())
+    touched = float((out_k.float() - blank.float()).abs().max())
+    print(f"[kernels] {tag} warp_composite {_mode(cfg)} N={comp[5].N} at the "
+          f"timed inputs: bit-equal {torch.equal(out_k, walked[0])}, max "
+          f"diff {d:.3e}, max change vs blank canvas {touched:.4f}")
+    assert torch.equal(out_k, walked[0]), f"warp_composite {tag} differs"
+    assert touched > 0.0, "warp_composite left the canvas blank"
+    errs["warp_composite"] = max(errs["warp_composite"], d)
+    del walked, out_k, blank
     bnd = bounds(march, comp, canvas)
     for name in ms:
         print(f"[timing] {tag} {name}: kernel {ms[name]:.4f} ms, plain "
@@ -456,7 +514,7 @@ def time_unfused(tag, state, camera, light, cfg, sb, card):
             lambda: K.warp_images_plain(*img_args), 2) / n
         plain["composite_chunk"] += _cuda_ms(
             lambda: K.composite_chunk_plain(canvas, images, *comp_args),
-            1) / n
+            1, warm=False) / n
     bnd = bounds_unfused(chunks, canvas, sb[0].element_size())
     for name in ms:
         print(f"[timing] {tag} {name} (per launch, {n} per frame): kernel "
@@ -478,13 +536,231 @@ def time_loop(tag, prepared, cfg, card, fb=N_FRAMES, n_frames=16, warmup=1):
           f"{[round(w * 1e3, 3) for w in band]} ms/frame)  [{card}]")
 
 
+def check_probes(errs):
+    """The three probe kernels against their plain versions."""
+    import torch
+    from volq_torch import probe
+    from volq_torch.probe import tensor_core, stage, window
+    dev = "cuda"
+    shapes = [(t, M, K, N) for t, M, K, N in
+              tensor_core.SHAPES + tensor_core.PIPE_SHAPES
+              if t in ("c3_dot1", "up_tlist", "c4_dot2_paired",
+                       "m_sweep_16", "n_sweep_256")]
+    for tag, M, K, N in dict.fromkeys(shapes):
+        for nacc in (1, 8):
+            for blocks in (1, tensor_core.N_SM):
+                # the stack depth of the timed launches, so that the plan
+                # and the accumulators in use are theirs
+                R, _ = tensor_core.size_run(M, K, N)
+                A, B = tensor_core.make_inputs(R, M, K, N, dev)
+                out = probe.mma_probe(A, B, 4, nacc, blocks)
+                ref = probe.mma_probe_plain(A, B, 4, blocks)
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                rel = err / float(ref.abs().max())
+                plan = tensor_core.mma_plan(R, M, K, N, nacc)
+                print(f"[kernels] probe_mma {tag} {M} x {K} x {N} R {R} G 4 "
+                      f"nacc {nacc} (in use {plan.nacc}) blocks {blocks} "
+                      f"{'resident' if plan.resident else 'KC %d' % plan.KC}"
+                      f": max|kernel - plain| = {err:.3e} = {rel:.3e} of "
+                      f"max |out|")
+                assert tuple(out.shape) == (blocks, M, N)
+                assert rel <= MMA_TOL, f"probe_mma {tag} disagrees: {rel}"
+                errs["probe_mma"] = max(errs["probe_mma"], err)
+                errs["probe_mma_rel"] = max(errs.get("probe_mma_rel", 0.0),
+                                            rel)
+    for K, small, const in ((1, 0, 0), (4, 0, 0), (12, 0, 0), (2, 3, 4)):
+        args = stage.make_inputs(K, small, const, dev)
+        for G in (1, 2048):
+            out = probe.stage_probe(*args, G)
+            ref = probe.stage_probe_plain(*args, G)
+            torch.cuda.synchronize()
+            d = float((out - ref).abs().max())
+            print(f"[kernels] probe_stage K {K} small {small} const {const} "
+                  f"G {G}: bit-equal {torch.equal(out, ref)}, max diff "
+                  f"{d:.3e}, sum {float(out.sum()):.3f}")
+            assert torch.equal(out, ref), "probe_stage differs"
+            assert float(out.sum()) > 0.0
+            errs["probe_stage"] = max(errs["probe_stage"], d)
+    for align in window.ARMS:
+        off = torch.from_numpy(window.make_offsets(align)).to(dev)
+        out = probe.window_probe(
+            torch.zeros((window.H, window.W), device=dev), off, align)
+        ref = probe.window_probe_plain(
+            torch.zeros((window.H, window.W), device=dev), off, align)
+        torch.cuda.synchronize()
+        d = float((out - ref).abs().max())
+        print(f"[kernels] probe_window align {align} N {window.N} canvas "
+              f"{window.H} x {window.W}: bit-equal {torch.equal(out, ref)}, "
+              f"max diff {d:.3e}, deepest overlap {int(out.max())}")
+        assert torch.equal(out, ref), "probe_window differs"
+        assert float(out.sum()) == window.N * window.WH * window.WW
+        errs["probe_window"] = max(errs["probe_window"], d)
+
+
+def run_probes(card):
+    """The probes' entry point, in process, from zeroed counters.  Returns
+    (launch counts, records by probe)."""
+    from volq_torch.probe import __main__ as probe_main
+    _zero_counts()
+    recs = {name: probe_main.RUNNERS[name](card)
+            for name in ("mma", "stage", "window")}
+    counts = _counts()
+    print(f"[main] probes: launches {counts}")
+    for name in PROBES:
+        assert counts[name] > 0, f"{name} never launched in the probes' run"
+    top = max(r["tflops"] for r in recs["mma"])
+    print(f"[main] probes: highest tensor-core rate read {top:.2f} TFLOP/s "
+          f"(the card's dense bf16 peak is {BF16_FLOP_PER_S / 1e12:.0f})")
+    assert top <= BF16_FLOP_PER_S / 1e12, "a rate above the card's peak"
+    assert all(r["ns_per_step"] > 0 for r in recs["stage"])
+    assert all(r["ns_per_window"] > 0 for r in recs["window"])
+    return counts, recs
+
+
+def time_probes(card):
+    """One named point per probe: the kernel's ms, its plain version's,
+    the bound, and for probe_mma one torch.matmul over the same operands."""
+    import torch
+    from volq_torch import probe
+    from volq_torch.probe import tensor_core, stage, window
+    dev = "cuda"
+    out = {}
+    # probe_mma: c3_dot1 (80 x 128 x 64), round-robin, one block per SM
+    M, K, N = 80, 128, 64
+    blocks = tensor_core.N_SM
+    R, G = tensor_core.size_run(M, K, N)
+    A, B = tensor_core.make_inputs(R, M, K, N, dev)
+    dots = blocks * G * R
+    by = A.numel() * 2 + B.numel() * 2 + blocks * M * N * 4
+    t_b, t_f = by / HBM_BYTES_PER_S, 2.0 * M * K * N * dots / BF16_FLOP_PER_S
+    out["probe_mma"] = {
+        "ms": probe.median_ms(lambda: probe.mma_probe(A, B, G, 8, blocks)),
+        "plain_ms": probe.median_ms(
+            lambda: probe.mma_probe_plain(A, B, G, blocks)),
+        "bound_ms": max(t_b, t_f) * 1e3,
+        "bound_by": "bytes" if t_b >= t_f else "operations",
+        "library_ms": probe.median_ms(lambda: torch.matmul(A, B)),
+        "point": f"c3_dot1 {M} x {K} x {N} bf16, R {R}, G {G}, nacc 8, "
+                 f"{blocks} blocks", "dots": dots, "library_dots": R}
+    # probe_stage: K 4, G 2048.  Bytes the function must move: the blocks
+    # n % M < min(G, M) of the K stacks read once (later steps fetch them
+    # again, from L2), the output written once; operations: one fp32 add
+    # per element and step
+    Ks, Gs = 4, 2048
+    args = stage.make_inputs(Ks, 0, 0, dev)
+    st_by = min(Gs, args[0][0].shape[0]) * Ks * 4096 + 4096
+    st_b, st_f = _bound(st_by, Gs * 8 * 128)
+    out["probe_stage"] = {
+        "ms": probe.median_ms(lambda: probe.stage_probe(*args, Gs)),
+        "plain_ms": probe.median_ms(
+            lambda: probe.stage_probe_plain(*args, Gs), 1),
+        "bound_ms": st_b, "bound_by": st_f, "library_ms": None,
+        "bound_bytes": st_by,
+        "point": f"K {Ks} tiles of 4 KB a step, G {Gs} steps"}
+    # probe_window: 16-element alignment
+    align = 16
+    off = torch.from_numpy(window.make_offsets(align)).to(dev)
+    canvas = torch.zeros((window.H, window.W), device=dev)
+    # bytes: the windows overlap, so each canvas cell that these offsets
+    # touch is read once and written once, and the offsets are read once
+    touched = window.cells_touched(off, window.W)
+    w_by = 2 * touched * 4 + off.numel() * 4
+    w_b, w_f = _bound(w_by, window.N * window.WH * window.WW)
+    out["probe_window"] = {
+        "ms": probe.median_ms(lambda: probe.window_probe(
+            canvas, off, align, check_offsets=False)),
+        "plain_ms": probe.median_ms(
+            lambda: probe.window_probe_plain(canvas, off, align), 1),
+        "bound_ms": w_b, "bound_by": w_f, "library_ms": None,
+        "bound_bytes": w_by, "cells_touched": touched,
+        "point": f"{window.N} windows 8 x 128 fp32 of a {window.H} x "
+                 f"{window.W} canvas, x aligned to {align}"}
+    for name, t in out.items():
+        print(f"[timing] {name} ({t['point']}): kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']}), library {t['library_ms']}  [{card}]")
+    return out
+
+
+def drive_cli(card):
+    """python -m volq_torch.cli, in process, on the card: c1 with
+    checkpoint and resume, c1 against the CPU, c2 through kernels A and
+    B."""
+    import numpy as np
+    from volq_torch.cli import main as cli
+    with tempfile.TemporaryDirectory() as tmp:
+        j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+        t0 = time.perf_counter()
+        assert cli(["--preset", "c1", "--frames", "3", "--out", j("full"),
+                    "--npy"]) == 0
+        assert cli(["--preset", "c1", "--frames", "2", "--out", j("part"),
+                    "--png", "--npy", "--checkpoint", j("ck.npz")]) == 0
+        assert cli(["--preset", "c1", "--resume", j("ck.npz"), "--frames",
+                    "1", "--out", j("rest"), "--npy"]) == 0
+        assert cli(["--preset", "c1", "--device", "cpu", "--frames", "1",
+                    "--out", j("cpu"), "--npy"]) == 0
+        dt = time.perf_counter() - t0
+        with open(j("part", "frame_0001.png"), "rb") as f:
+            assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+        full = np.load(j("full", "frame_0002.npy"))
+        rest = np.load(j("rest", "frame_0000.npy"))
+        first = np.load(j("full", "frame_0000.npy"))
+        cpu = np.load(j("cpu", "frame_0000.npy"))
+        d = float(np.abs(first - cpu).max())
+        print(f"[main] cli c1 (exact engine, 256 x 256 ortho): 3 + 2 + 1 "
+              f"frames on the card and 1 on the CPU in {dt:.2f} s; resumed "
+              f"frame equal to the uninterrupted run's "
+              f"{np.array_equal(full, rest)}; card vs CPU max diff {d:.3e}; "
+              f"alpha max {float(full[..., 3].max()):.4f}")
+        assert full.shape == (256, 256, 4) and np.isfinite(full).all()
+        assert full[..., 3].max() > 0.05
+        assert np.array_equal(full, rest), "resume is not frame-exact"
+        assert d <= 1e-5, f"exact engine on the card vs the CPU: {d}"
+
+        _zero_counts()
+        t0 = time.perf_counter()
+        assert cli(["--preset", "c2", "--frames", "2", "--out", j("c2"),
+                    "--npy"]) == 0
+        dt = time.perf_counter() - t0
+        counts = _counts()
+        img = np.load(j("c2", "frame_0001.npy"))
+        cover = float((img[..., 3] > 0.01).mean())
+        print(f"[main] cli c2 (warp, 512 x 512): 2 frames in {dt:.2f} s, "
+              f"launches {counts}, alpha max {float(img[..., 3].max()):.4f}"
+              f", {cover * 100:.1f}% of pixels above 0.01")
+        assert counts["warp_march"] == 2 and counts["warp_composite"] == 2
+        assert img.shape == (512, 512, 4) and np.isfinite(img).all()
+        assert 0.05 < img[..., 3].max() <= 1.0 + 1e-6 and cover > 0.05
+    return counts
+
+
+def bench_cli(prepared, card):
+    """--bench on c3 through the command line, on the state already set
+    up: its one JSON line."""
+    from volq_torch.cli import main as cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(["--preset", "c3", "--bench", "--frames", "16",
+                  "--frames-per-launch", "8"], prepared=prepared)
+    lines = buf.getvalue().strip().splitlines()
+    assert rc == 0 and len(lines) == 1, lines
+    rec = json.loads(lines[0])
+    print(f"[loop] cli c3 --bench --frames 16 --frames-per-launch 8: "
+          f"{lines[0]}  [{card}]")
+    assert set(rec) == {"frame_ms", "fps", "mrays_per_s",
+                        "frames_per_launch", "mesh", "stats"}
+    assert rec["mrays_per_s"] > 0 and rec["frames_per_launch"] == 8
+    assert rec["stats"]["rendered"] > 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
     from volq_torch.engine import loop
-    from volq_torch.render._build import build_all
+    from volq_torch._build import build_all
     from volq_torch.render import kernel as K
     from volq_torch.render.warp import (bake_slab_banks, fused_inputs,
                                         render_warp)
@@ -492,6 +768,7 @@ def main() -> int:
     from volq_torch.scene.state import bake_volumes
     from volq_torch.sim.step import sim_step
 
+    t_start = time.perf_counter()
     card = _card_line()
     print(f"[card] {card}")
     print(f"[versions] python {sys.version.split()[0]} torch "
@@ -500,7 +777,13 @@ def main() -> int:
 
     t = build_all(verbose=True)
     print(f"[build] kernels built in {t:.1f} s")
-    errs = dict.fromkeys(NAMES, 0.0)
+    errs = dict.fromkeys(NAMES + PROBES, 0.0)
+
+    # ---- the probes, then the command line on c1 and c2
+    check_probes(errs)
+    probe_counts, _ = run_probes(card)
+    probe_times = time_probes(card)
+    drive_cli(card)
 
     # ---- c3: the unlit fused path
     cfg = c3()
@@ -521,8 +804,9 @@ def main() -> int:
     unfused = {"warp_images": 2, "composite_chunk": 2}
     state, _, c3_counts = drive("c3", state, camera, light, cfg, None, sb,
                                 N_FRAMES, fused)
-    c3_times = time_fused("c3", state, camera, light, cfg, sb, card)
+    c3_times = time_fused("c3", state, camera, light, cfg, sb, card, errs)
     time_loop("c3", (state, camera, light, None, sb), cfg, card)
+    bench_cli((state, camera, light, None, sb), card)
     del state, sb
     torch.cuda.empty_cache()
 
@@ -552,7 +836,7 @@ def main() -> int:
     st_u, _, u_counts = drive("c4 unfused", state, camera, light, ucfg, lv,
                               sb, N_FRAMES_UNFUSED, unfused)
     same_image("c4", st_u, camera, light, cfg, ucfg, lv, sb)
-    c4_times = time_fused("c4", st_f, camera, light, cfg, sb, card)
+    c4_times = time_fused("c4", st_f, camera, light, cfg, sb, card, errs)
     c4_times.update(time_unfused("c4", st_f, camera, light, ucfg, sb, card))
     for tag, st, c in (("c4 fused", st_f, cfg), ("c4 unfused", st_u, ucfg)):
         time_loop(tag, (st, camera, light, lv, sb), c, card)
@@ -588,7 +872,8 @@ def main() -> int:
     p_counts = dict(pu_counts, warp_march=p_counts["warp_march"],
                     warp_composite=p_counts["warp_composite"])
     same_image("c4 per-step", sp_u, camera, light, pcfg, pucfg, lv, psb)
-    p_times = time_fused("c4 per-step", sp_f, camera, light, pcfg, psb, card)
+    p_times = time_fused("c4 per-step", sp_f, camera, light, pcfg, psb, card,
+                         errs)
     p_times.update(time_unfused("c4 per-step", sp_f, camera, light, pucfg,
                                 psb, card))
     for tag, st, c in (("c4 per-step fused", sp_f, pcfg),
@@ -616,7 +901,7 @@ def main() -> int:
              lambda: bake_slab_banks(st1.volumes, lv, cfg))):
         print(f"[bake] c5 {what}: {_wall_ms(fn, 3):.3f} ms per frame  "
               f"[{card}]")
-    check_fused("c5", st1, camera, light, cfg, lv, errs)
+    check_fused("c5", st1, camera, light, cfg, lv, errs, run=RUN)
     # B's new modes each alone, on a run of particles: the cell canvas
     # without the interleaved association, and that association on a
     # pixel canvas
@@ -631,15 +916,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     state, _, c5_counts = drive("c5", state, camera, light, cfg, None, None,
                                 N_FRAMES_C5, fused)
-    c5_times = time_fused("c5", state, camera, light, cfg, None, card)
+    c5_times = time_fused("c5", state, camera, light, cfg, None, card, errs)
     time_loop("c5", (state, camera, light, None, None), cfg, card,
               fb=N_FRAMES_C5, n_frames=N_FRAMES_C5, warmup=0)
 
-    sources = {name: f"volq_torch/csrc/{name}.cu" for name in NAMES}
+    sources = {name: f"volq_torch/csrc/{name}.cu" for name in NAMES + PROBES}
     replaces = {"warp_march": "volq/render/kernel.py:175",
                 "warp_composite": "volq/render/kernel.py:175",
                 "warp_images": "volq/render/kernel.py:2013",
-                "composite_chunk": "volq/render/kernel.py:2159"}
+                "composite_chunk": "volq/render/kernel.py:2159",
+                "probe_mma": "bench/mxu_probe.py:78",
+                "probe_stage": "bench/specs_probe.py:31",
+                "probe_window": "bench/granule_probe.py:72"}
     launches = dict(u_counts, warp_march=c4_counts["warp_march"],
                     warp_composite=c4_counts["warp_composite"])
     kernels = []
@@ -655,6 +943,16 @@ def main() -> int:
             if name in times:
                 k[path] = {"launches": counts[name], **times[name]}
         kernels.append(k)
+    for name in PROBES:
+        k = {"name": name, "route": "cuda", "source": sources[name],
+             "replaces": replaces[name], "launches": probe_counts[name],
+             "max_abs_err": errs[name], **probe_times[name],
+             "path": "probes"}
+        if name == "probe_mma":
+            k["max_rel_err"] = errs["probe_mma_rel"]
+        kernels.append(k)
+    print(f"[time] every phase, the builds included: "
+          f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

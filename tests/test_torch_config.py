@@ -103,7 +103,9 @@ def test_import_pulls_in_no_jax():
     code = ("import sys\n"
             "before = set(sys.modules)\n"
             "import volq_torch.engine, volq_torch.convert, "
-            "volq_torch.render._build, volq_torch.profile\n"
+            "volq_torch._build, volq_torch.profile, volq_torch.cli, "
+            "volq_torch.probe.__main__, volq_torch.engine.checkpoint, "
+            "volq_torch.engine.replay, volq_torch.engine.io\n"
             "bad = [m for m in set(sys.modules) - before if m == 'jax' "
             "or m.startswith('jax.') or m == 'volq' "
             "or m.startswith('volq.')]\n"

@@ -299,3 +299,73 @@ def test_animated_coarse_frames_count_launches():
     _, img_b, st_b = loop.frame(state, camera, light, alt)
     assert torch.equal(img_a, img_b)
     assert int(st_b["rendered"]) > 0
+
+
+# --------------------------------------------------------------------------
+# the probe kernels (volq_torch/probe) against their plain versions
+
+@pytest.mark.parametrize("blocks", [1, 3])
+@pytest.mark.parametrize("nacc", [1, 8])
+@pytest.mark.parametrize("shape", [(16, 32, 16), (80, 128, 64),
+                                   (120, 64, 64), (64, 1280, 64),
+                                   (128, 64, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_probe_mma_matches_plain(shape, nacc, blocks):
+    """One tile, a 5-tile M, a ragged M, a K that streams in chunks, 16
+    tiles a warp: within 1e-4 of max |out| of the fp64 plain sum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from volq_torch import probe
+    from volq_torch.probe import tensor_core
+    M, Kd, N = shape
+    R = 8 if Kd == 1280 else 3   # 8 operands of 64 x 1280 do not fit
+    A, B = tensor_core.make_inputs(R, M, Kd, N, "cuda", seed=M)
+    assert tensor_core.mma_plan(R, M, Kd, N, nacc).resident == (Kd < 1280)
+    n0 = probe.mma_probe.launches
+    out = probe.mma_probe(A, B, 5, nacc, blocks)
+    ref = probe.mma_probe_plain(A, B, 5, blocks)
+    assert probe.mma_probe.launches == n0 + 1
+    assert tuple(out.shape) == (blocks, M, N)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert float(probe.mma_probe(A, B, 0, nacc, blocks).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("mix", [(1, 0, 0), (4, 0, 0), (12, 0, 0),
+                                 (2, 3, 0), (2, 0, 4), (16, 4, 4)],
+                         ids=lambda m: "K%d-s%d-c%d" % m)
+def test_probe_stage_matches_plain(mix):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from volq_torch import probe
+    from volq_torch.probe import stage
+    args = stage.make_inputs(*mix, "cuda", M=8)
+    n0 = probe.stage_probe.launches
+    for G in (0, 1, 2, 19, 300):
+        out = probe.stage_probe(*args, G)
+        assert torch.equal(out, probe.stage_probe_plain(*args, G)), G
+    assert probe.stage_probe.launches == n0 + 5
+
+
+@pytest.mark.parametrize("align", [128, 16, 8, 4])
+def test_probe_window_matches_plain(align):
+    """Overlapping windows on a small canvas, where most of them overlap
+    their predecessor, and the reference's size."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from volq_torch import probe
+    from volq_torch.probe import window
+    for n, h, w in ((257, 24, 256), (window.N, window.H, window.W)):
+        off = torch.from_numpy(window.make_offsets(align, n, h, w, seed=n))
+        out = probe.window_probe(torch.zeros((h, w), device="cuda"),
+                                 off.cuda(), align)
+        ref = probe.window_probe_plain(torch.zeros((h, w)), off, align)
+        assert torch.equal(out.cpu(), ref)
+        assert float(out.sum()) == n * window.WH * window.WW
+    with pytest.raises(ValueError):
+        probe.window_probe(torch.zeros((24, 256), device="cuda"),
+                           off[:8].cuda() + 2, align)
+    # no windows: nothing launches and nothing is counted
+    n0 = probe.window_probe.launches
+    blank = torch.zeros((24, 256), device="cuda")
+    assert probe.window_probe(blank, off[:0].cuda(), align) is blank
+    assert probe.window_probe.launches == n0

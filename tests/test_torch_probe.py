@@ -1,0 +1,258 @@
+"""volq_torch.probe's plain versions against the JAX package's TPU probe
+kernels (bench/mxu_probe.py, specs_probe.py, granule_probe.py), whose
+Pallas bodies run here in interpret mode at a small size, through a
+harness that repeats each module's block specs.  Inputs come from a numpy
+seed and go through both.
+
+Budgets: the staged sum and the window read-modify-write are bit-equal
+(one fp32 add per element and step; adding 1.0 to a small count); the
+tensor-core product is within 1e-5 of max |out| (fp32 accumulation in
+another order than the fp64 plain sum).
+"""
+import functools
+import importlib.util
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from volq_torch import probe
+from volq_torch.probe import stage, tensor_core, window
+
+BENCH = pathlib.Path(__file__).resolve().parent.parent / "bench"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These scenes are small: one intra-op thread is as fast, and does not
+    fight the other test workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _bench_module(name):
+    spec = importlib.util.spec_from_file_location(f"bench_{name}",
+                                                  BENCH / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("nacc", [1, 8])
+@pytest.mark.parametrize("shape", [(16, 32, 16), (80, 128, 64)],
+                         ids=["16x32x16", "80x128x64"])
+def test_mma_plain_matches_pallas_body(shape, nacc):
+    mxu = _bench_module("mxu_probe")
+    M, K, N = shape
+    R, G = 4, 3
+    rng = np.random.default_rng(7)
+    A = jnp.asarray(rng.standard_normal((R, M, K), dtype=np.float32),
+                    jnp.bfloat16)
+    B = jnp.asarray(rng.standard_normal((K, N), dtype=np.float32),
+                    jnp.bfloat16)
+    # time_shape's call (bench/mxu_probe.py:93-100), interpreted
+    ref = pl.pallas_call(
+        functools.partial(mxu._dot_kernel, R=R, NACC=nacc),
+        grid=(G,),
+        in_specs=[pl.BlockSpec((R, M, K), lambda g: (0, 0, 0)),
+                  pl.BlockSpec((K, N), lambda g: (0, 0))],
+        out_specs=pl.BlockSpec((M, N), lambda g: (0, 0)),
+        out_shape=jax.ShapeDtypeStruct((M, N), jnp.float32),
+        interpret=True)(A, B)
+    ref = np.asarray(ref)
+    tA, tB = _bf16(A), _bf16(B)
+    got = probe.mma_probe_plain(tA, tB, G, blocks=2)
+    assert got.shape == (2, M, N) and got.dtype == torch.float32
+    assert torch.equal(got[0], got[1])
+    assert np.abs(got[0].numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+    # on a CPU tensor the wrapper takes the plain version
+    assert torch.equal(probe.mma_probe(tA, tB, G, nacc, blocks=2), got)
+    assert probe.mma_probe.launches == 0
+
+
+def test_mma_plans_cover_the_reference_shapes():
+    """Every shape of the reference's sweep has a plan the kernel takes:
+    8 warps, at most 16 tiles a warp, shared memory within the block's
+    limit, the accumulators that fit; K = 1280 streams in chunks."""
+    assert tensor_core.SHAPES == tuple(_bench_module("mxu_probe").SHAPES)
+    assert tensor_core.PIPE_SHAPES == \
+        tuple(_bench_module("mxu_probe").PIPE_SHAPES)
+    for _, M, K, N in tensor_core.SHAPES + tensor_core.PIPE_SHAPES:
+        R, G = tensor_core.size_run(M, K, N)
+        for nacc in (1, 8):
+            p = tensor_core.mma_plan(R, M, K, N, nacc)
+            assert p.WGM * p.WGN == 8 and p.Mp % 16 == 0 and p.Mp >= M
+            assert p.WGM * p.WM * 16 >= p.Mp and p.WGN * p.WN * 16 >= N
+            assert p.WM * p.WN * p.nacc <= 16
+            assert p.nacc == (1 if nacc == 1 else min(8, 16 // (p.WM * p.WN)))
+            assert p.smem <= tensor_core.SMEM_BYTES and K % p.KC == 0
+            assert p.resident == (K < 1280)
+            assert R >= 1 and G >= 8
+    assert tensor_core.mma_plan(4, 120, 64, 64, 8).Mp == 128
+    for bad in ((4, 64, 24, 64, 1), (4, 64, 64, 72, 1), (4, 64, 64, 64, 4),
+                (1, 512, 64, 256, 1)):
+        with pytest.raises(ValueError):
+            tensor_core.mma_plan(*bad)
+
+
+def _capture_specs_kernel(monkeypatch, specs):
+    """specs_probe builds its kernel inside ``run``: run it once at the
+    smallest size with ``pl.pallas_call`` watched, and keep the body."""
+    seen = []
+
+    class Watch:
+        def __getattr__(self, name):
+            return getattr(pl, name)
+
+        def pallas_call(self, kernel, **kw):
+            seen.append(kernel)
+            return pl.pallas_call(kernel, **kw)
+
+    monkeypatch.setattr(specs, "pl", Watch())
+    specs.run(1, 2, reps=1)
+    monkeypatch.undo()
+    return seen[0]
+
+
+@pytest.mark.parametrize("mix", [(2, 0, 0), (2, 3, 0), (1, 0, 4)],
+                         ids=["K2", "K2+small3", "K1+const4"])
+def test_stage_plain_matches_pallas_body(monkeypatch, capsys, mix):
+    specs = _bench_module("specs_probe")
+    kernel = _capture_specs_kernel(monkeypatch, specs)
+    K, small, const = mix
+    M, G = 8, 16
+    rng = np.random.default_rng(11)
+    xs = [rng.random((M, 8, 128), dtype=np.float32) for _ in range(K)]
+    sm = [rng.random((M, 1, 16), dtype=np.float32) for _ in range(small)]
+    cs = [rng.random((M, 8, 128), dtype=np.float32) for _ in range(const)]
+    # run's specs (bench/specs_probe.py:46-58) at this M and G
+    in_specs = [pl.BlockSpec((1, 8, 128), lambda n, s: (n % M, 0, 0),
+                             memory_space=pltpu.VMEM) for _ in range(K)]
+    in_specs += [pl.BlockSpec((1, 1, 16), lambda n, s: (n % M, 0, 0),
+                              memory_space=pltpu.SMEM) for _ in range(small)]
+    in_specs += [pl.BlockSpec((1, 8, 128), lambda n, s: (0, 0, 0),
+                              memory_space=pltpu.VMEM) for _ in range(const)]
+    ref = pl.pallas_call(
+        kernel, grid=(G, 1), in_specs=in_specs,
+        out_specs=pl.BlockSpec((8, 128), lambda n, s: (0, 0),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((8, 128), jnp.float32),
+        interpret=True)(*map(jnp.asarray, xs + sm + cs))
+    t = lambda arrs: [torch.from_numpy(a) for a in arrs]  # noqa: E731
+    got = probe.stage_probe_plain(t(xs), t(sm), t(cs), G)
+    np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+    assert torch.equal(probe.stage_probe(t(xs), t(sm), t(cs), G), got)
+    # the sum wraps around the stack: G = 2 M steps see every block twice
+    want = np.zeros((8, 128), np.float32)
+    for n in range(G):
+        want = want + xs[0][n % M]
+    np.testing.assert_array_equal(want, got.numpy())
+
+
+@pytest.mark.parametrize("align", [128, 16, 8])
+def test_window_plain_matches_pallas_body(align):
+    gran = _bench_module("granule_probe")
+    H, W, N = 64, 512, 32
+    off = window.make_offsets(align, N, H, W, seed=3)
+    # run's call (bench/granule_probe.py:81-95) on a small canvas
+    ref = pl.pallas_call(
+        functools.partial(gran._kernel, align=align),
+        grid=(N,),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
+                  pl.BlockSpec(memory_space=pltpu.ANY)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.ANY),
+        out_shape=jax.ShapeDtypeStruct((H, W), jnp.float32),
+        input_output_aliases={1: 0},
+        scratch_shapes=[
+            pltpu.VMEM((2, gran.WH, gran.WW), jnp.float32),
+            pltpu.SemaphoreType.DMA((2,)),
+            pltpu.SemaphoreType.DMA((2,)),
+        ],
+        interpret=True)(jnp.asarray(off), jnp.zeros((H, W), jnp.float32))
+    toff = torch.from_numpy(off)
+    got = probe.window_probe_plain(torch.zeros((H, W)), toff, align)
+    np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+    assert float(got.max()) >= 2.0, "no two windows overlap"
+    assert float(got.sum()) == N * 8 * 128
+    assert torch.equal(probe.window_probe(torch.zeros((H, W)), toff, align),
+                       got)
+
+
+def test_window_offsets_are_the_reference_s():
+    """make_offsets repeats granule_probe.run's draw (same seed, same
+    order), so the card is asked about the same windows."""
+    gran = _bench_module("granule_probe")
+    assert (window.H, window.W, window.WH, window.WW, window.N) == \
+        (gran.H, gran.W, gran.WH, gran.WW, gran.N)
+    for align in (128, 16, 8):
+        rng = np.random.RandomState(0)
+        ys = rng.randint(0, (gran.H - gran.WH) // 8, size=gran.N) * 8
+        xs = rng.randint(0, (gran.W - gran.WW) // align, size=gran.N) * align
+        off = window.make_offsets(align)
+        assert off.dtype == np.int32 and off.shape == (2 * gran.N,)
+        np.testing.assert_array_equal(off[0::2], ys)
+        np.testing.assert_array_equal(off[1::2], xs)
+
+
+def test_window_cells_touched_counts_overlap_once():
+    """The bytes a window run must move: every covered cell once, however
+    many windows cover it."""
+    off = torch.from_numpy(window.make_offsets(8, 32, 64, 512, seed=3))
+    counts = probe.window_probe_plain(torch.zeros((64, 512)), off, 8)
+    touched = window.cells_touched(off, 512)
+    assert touched == int((counts > 0).sum()) < 32 * 8 * 128
+    assert window.cells_touched(off[:2], 512) == 8 * 128
+    # no windows: nothing to do, and the launch count stays as it was
+    before = probe.window_probe.launches
+    empty = torch.zeros(0, dtype=torch.int32)
+    assert float(probe.window_probe(torch.zeros((64, 512)), empty, 8).sum()) \
+        == 0.0
+    assert probe.window_probe.launches == before
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    A, B = tensor_core.make_inputs(2, 32, 32, 32, "cpu")
+    with pytest.raises(TypeError):
+        probe.mma_probe(A.float(), B, 1)
+    with pytest.raises(ValueError):
+        probe.mma_probe(A, B[:16], 1)
+    with pytest.raises(ValueError):
+        probe.mma_probe(A.transpose(1, 2), B, 1)
+    xs, sm, cs = stage.make_inputs(2, 1, 1, "cpu", M=4)
+    with pytest.raises(ValueError):
+        probe.stage_probe([], sm, cs, 4)
+    with pytest.raises(ValueError):
+        probe.stage_probe(xs, [sm[0][:, :, :8]], cs, 4)
+    with pytest.raises(TypeError):
+        probe.stage_probe([x.double() for x in xs], sm, cs, 4)
+    with pytest.raises(ValueError):
+        probe.stage_probe(xs, sm, [cs[0][:2]], 4)
+    canvas = torch.zeros((64, 512))
+    off = torch.from_numpy(window.make_offsets(8, 16, 64, 512))
+    for bad in (dict(align=16), dict(align=2)):
+        with pytest.raises(ValueError):
+            probe.window_probe(canvas, off, **bad)
+    with pytest.raises(ValueError):
+        probe.window_probe(canvas, off + 60, 4)
+    with pytest.raises(TypeError):
+        probe.window_probe(canvas, off.long(), 8)
+
+
+def test_probe_entry_point_needs_the_card(monkeypatch, capsys):
+    from volq_torch.probe.__main__ import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert main(["stage"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        main(["bogus"])

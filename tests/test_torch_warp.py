@@ -145,7 +145,7 @@ def test_grid_geometry_matches(tiny_cfg, view):
 
 
 UNSUPPORTED = [
-    dict(engine="exact"),
+    dict(engine="slab"),
     dict(warp_pallas=False),
     dict(light_steps=4, light_mode="march"),
     dict(warp_coarse=1),
@@ -160,9 +160,9 @@ STILL_OUTSIDE = ("engine", "warp_pallas")
 
 @pytest.mark.parametrize("kw", UNSUPPORTED, ids=lambda kw: ",".join(kw))
 def test_flags_outside_the_slice_raise(tiny_cfg, kw):
-    """Other engines and the XLA warp path raise, naming the ROADMAP
-    item.  The other flags have joined the slice: each is accepted on its
-    own, renders (tests/test_torch_warp_c5.py, test_torch_perstep.py),
+    """The slab engine and the XLA warp path raise, naming the ROADMAP
+    item (the exact engine is ported: tests/test_torch_exact.py).  The
+    other flags have joined the slice: each is accepted on its own, renders (tests/test_torch_warp_c5.py, test_torch_perstep.py),
     and still raises under a camera that is outside the slice."""
     base = c3_flags(tiny_cfg)
     cfg = _port(dataclasses.replace(

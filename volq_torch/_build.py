@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels (``volq_torch/csrc/*.cu``).
+"""Build, load and bind the port's CUDA kernels (``volq_torch/csrc/*.cu``).
 
 Each source is compiled at first use with ``nvcc`` into a shared library
 with a plain C interface under ``build/volq_torch/`` at the repository
 root, named by the content hash of the source and of every file under
 ``csrc/`` it includes (an edited source or header rebuilds), and loaded
 with ``ctypes``.  ``build_all`` starts one ``nvcc`` per
-source at once.  Nothing here runs at import time.
+source at once.  Nothing here runs at import time.  ``check_tensor``,
+``ptr`` and ``stream`` are what every wrapper needs to hand tensors to a
+C function.
 """
 from __future__ import annotations
 
@@ -18,11 +20,13 @@ import subprocess
 import time
 from pathlib import Path
 
-_PKG = Path(__file__).resolve().parent.parent
+import torch
+
+_PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "volq_torch"
 SOURCES = ("warp_march", "warp_composite", "warp_images",
-           "composite_chunk")
+           "composite_chunk", "probe_mma", "probe_stage", "probe_window")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -104,3 +108,27 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _libs[name] = lib
     return lib
+
+
+def check_tensor(t: torch.Tensor, name: str, dtypes, shape=None,
+                 device=None):
+    """Raise unless ``t`` has one of ``dtypes``, the given shape and
+    device, and is contiguous (what the kernels take)."""
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def stream(device) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on ``device``, for a launch."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """Device pointer of ``t`` (NULL for an absent optional input)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())

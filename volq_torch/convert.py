@@ -31,26 +31,37 @@ def _to_numpy(t):
 
 
 def state_from_numpy(d, device="cpu") -> SceneState:
+    """``d.volumes`` may be the bf16 bank or its fp32 widening (what a
+    checkpoint stores): fp32 is narrowed to bf16 on the host, before the
+    upload."""
     p = d.particles
     parts = Particles(*(_to_torch(getattr(p, f), device)
                         for f in Particles._fields))
+    volumes = np.asarray(d.volumes)
+    if volumes.dtype == np.float32:
+        volumes = torch.from_numpy(volumes).to(torch.bfloat16).to(device)
+    else:
+        volumes = _to_torch(volumes, device)
     return SceneState(
         particles=parts,
-        volumes=_to_torch(d.volumes, device),
+        volumes=volumes,
         frame=_to_torch(np.asarray(d.frame, np.int32), device),
         spawn_carry=_to_torch(np.asarray(d.spawn_carry, np.float32), device),
         time=_to_torch(np.asarray(d.time, np.float32), device),
         base_key=_to_torch(np.asarray(d.base_key, np.uint32), device))
 
 
-def state_to_numpy(state: SceneState) -> SceneState:
+def state_to_numpy(state: SceneState, bank_fp32: bool = False) -> SceneState:
     """Port state -> the same NamedTuple of numpy arrays, with the key
-    back as uint32 and the bank as ml_dtypes bfloat16."""
+    back as uint32 and the bank as ml_dtypes bfloat16, or (``bank_fp32``,
+    what a checkpoint stores) widened to fp32."""
     p = state.particles
+    volumes = state.volumes.detach().cpu().to(torch.float32).numpy() \
+        if bank_fp32 else _to_numpy(state.volumes)
     return SceneState(
         particles=Particles(*(_to_numpy(getattr(p, f))
                               for f in Particles._fields)),
-        volumes=_to_numpy(state.volumes),
+        volumes=volumes,
         frame=_to_numpy(state.frame),
         spawn_carry=_to_numpy(state.spawn_carry),
         time=_to_numpy(state.time),

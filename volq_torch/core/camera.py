@@ -2,7 +2,8 @@
 
 ``make_camera`` is host numpy math, copied from the JAX package so both
 build bit-identical fp32 camera vectors; callers move the result onto a
-device with ``to_device``.
+device with ``to_device``.  ``pixel_rays`` generates pinhole-perspective
+and orthographic rays on the camera's device.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import math
 import numpy as np
 import torch
 
+from volq_torch.core.device import scalar
 from volq_torch.core.types import Camera
 
 
@@ -43,6 +45,31 @@ def to_device(nt, device):
     tensors on ``device``."""
     return type(nt)(*(torch.as_tensor(np.asarray(v, np.float32),
                                       device=device) for v in nt))
+
+
+def pixel_rays(camera: Camera, px, py, width: int, height: int,
+               projection: str):
+    """Per-pixel world rays.  px / py: integer pixel coordinate tensors of
+    any (broadcast-compatible) shape; returns (origin, direction) with a
+    trailing [..., 3] axis.  Pixel (px, py) samples its centre; image y
+    grows downward.  Directions are unit length, so march t is in world
+    units."""
+    ndc_x = (px.to(torch.float32) + 0.5) / scalar(width, camera.eye) \
+        * 2.0 - 1.0
+    ndc_y = 1.0 - (py.to(torch.float32) + 0.5) / scalar(height, camera.eye) \
+        * 2.0
+    ox = ndc_x * camera.scale_x
+    oy = ndc_y * camera.scale_y
+    if projection == "persp":
+        d = (camera.fwd + ox[..., None] * camera.right
+             + oy[..., None] * camera.up)
+        d = d / torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True))
+        o = camera.eye.expand(d.shape)
+    else:
+        o = (camera.eye + ox[..., None] * camera.right
+             + oy[..., None] * camera.up)
+        d = camera.fwd.expand(o.shape)
+    return o, d
 
 
 def view_z(camera: Camera, pos):

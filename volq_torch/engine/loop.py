@@ -88,10 +88,18 @@ def cached_slab_banks(state: SceneState, light_volumes, cfg: SceneConfig):
     """Bake the warp engine's marching slab banks once for a static
     scene (they change only with the volumes): (density, light or None
     when ``light_volumes`` is None or the scene is unlit).  None for
-    animated volumes: the frame bakes them after its own re-bake."""
-    if cfg.volume.animated:
+    animated volumes (the frame bakes them after its own re-bake) and
+    for the other engines."""
+    if cfg.volume.animated or cfg.render.engine != "warp":
         return None
     return bake_slab_banks(state.volumes, light_volumes, cfg)
+
+
+def render_only(state: SceneState, camera, light, cfg: SceneConfig):
+    """Render the current state without stepping.  Returns (image,
+    stats)."""
+    return render_frame(state.particles, state.volumes, camera, light, cfg,
+                        light_volumes=_light_volumes(state, light, cfg))
 
 
 def setup(cfg: SceneConfig, device=None):

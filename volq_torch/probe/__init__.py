@@ -1,0 +1,49 @@
+"""On-card probes (counterparts of the JAX package's TPU probes under
+``bench/``): three small hand-written CUDA kernels that each price one
+hardware mechanism the warp engine's kernels are built on, so that their
+redesign can start from the card's own numbers.
+
+* ``tensor_core.mma_probe`` (``csrc/probe_mma.cu``, replaces
+  ``bench/mxu_probe.py:time_shape``): small bf16 products on one SM's tensor
+  cores, chained or pipelined -- the hat-matrix placement as a product;
+* ``stage.stage_probe`` (``csrc/probe_stage.cu``, replaces
+  ``bench/specs_probe.py:run``): the fixed cost per step of a sequential
+  loop that stages tiles through shared memory with ``cp.async``;
+* ``window.window_probe`` (``csrc/probe_window.cu``, replaces
+  ``bench/granule_probe.py:run``): an ordered read-modify-write of canvas
+  windows at offsets of different alignment.
+
+Each wrapper launches its kernel for tensors on the card (raising if it
+cannot), runs its plain PyTorch version only for tensors on the CPU, and
+counts its launches in ``launches``.  ``python -m volq_torch.probe`` runs
+the timed sweeps on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from volq_torch.probe.stage import stage_probe, stage_probe_plain
+from volq_torch.probe.tensor_core import mma_probe, mma_probe_plain
+from volq_torch.probe.window import window_probe, window_probe_plain
+
+
+def median_ms(fn, reps: int = 5) -> float:
+    """Median over ``reps`` of the CUDA-event milliseconds of one call of
+    ``fn`` (after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        ts.append(e0.elapsed_time(e1))
+    return sorted(ts)[len(ts) // 2]
+
+
+__all__ = ["mma_probe", "mma_probe_plain", "stage_probe",
+           "stage_probe_plain", "window_probe", "window_probe_plain",
+           "median_ms"]

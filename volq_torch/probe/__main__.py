@@ -1,0 +1,85 @@
+"""Run the on-card probes' timed sweeps.
+
+    python3 -m volq_torch.probe [mma|stage|window ...] [--json PATH]
+
+With no name all three run.  Prints the card's name and power limit, then
+per probe one line per point: ns per product and TFLOP/s per shape on one
+SM and on all of them (mma), ns per step per K (stage), ns per window per
+alignment (window).  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+
+def run_mma(card: str):
+    from volq_torch.probe import tensor_core
+    recs = tensor_core.sweep()
+    for r in recs:
+        print(f"[probe] mma {r['tag']:24s} {r['M']:4d} x {r['K']:4d} x "
+              f"{r['N']:3d} blocks {r['blocks']:3d} nacc {r['nacc']} "
+              f"{'resident' if r['resident'] else 'KC %d' % r['KC']:8s} "
+              f"R {r['R']} G {r['G']:6d}: {r['ns_per_dot']:9.1f} ns/dot "
+              f"{r['tflops']:8.2f} TFLOP/s  [{card}]")
+    return recs
+
+
+def run_stage(card: str):
+    from volq_torch.probe import stage
+    recs = stage.sweep()
+    for r in recs:
+        print(f"[probe] stage K {r['K']:2d} small {r['small']} const "
+              f"{r['const']} G {r['G']:5d}: {r['ms']:8.3f} ms "
+              f"{r['ns_per_step']:8.1f} ns/step  [{card}]")
+    return recs
+
+
+def run_window(card: str):
+    from volq_torch.probe import window
+    recs = window.sweep()
+    for r in recs:
+        print(f"[probe] window align {r['align']:4d}: {r['ms']:8.3f} ms "
+              f"{r['ns_per_window']:8.1f} ns/window  [{card}]")
+    return recs
+
+
+RUNNERS = {"mma": run_mma, "stage": run_stage, "window": run_window}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="volq_torch.probe",
+                                 description=__doc__.splitlines()[0])
+    ap.add_argument("probes", nargs="*", metavar="mma|stage|window",
+                    help="which probes to run (default: all)")
+    ap.add_argument("--json", metavar="PATH",
+                    help="also write the records to PATH")
+    args = ap.parse_args(argv)
+    for name in args.probes:
+        if name not in RUNNERS:
+            ap.error(f"unknown probe {name!r} (choose from "
+                     f"{', '.join(RUNNERS)})")
+
+    import torch
+    if not torch.cuda.is_available():
+        print("volq_torch.probe: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"[card] {card}")
+    out = {"card": card}
+    for name in args.probes or list(RUNNERS):
+        out[name] = RUNNERS[name](card)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1)
+        print(f"wrote {args.json}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

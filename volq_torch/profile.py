@@ -1,19 +1,20 @@
 """Where a frame's time goes, on the card.
 
-    python -m volq_torch.profile [--preset c3|c4|c5] [--unfused] [--perstep]
-                                 [--frames 4]
+    python -m volq_torch.profile [--preset c1|c2|c3|c4|c5] [--unfused]
+                                 [--perstep] [--frames 4]
 
 Sets the preset up at full size (``--unfused``: with warp_fused=False;
-``--perstep``: with light_mode="march"), then prints (with the card's
-name and power limit): the wall milliseconds per frame of each phase,
-timed alone between device synchronizations -- the sim step, for an
-animated preset the three bakes every frame holds (4-D volume bank,
-light bank, slab banks), the render's host-side preparation (geometry,
-depth sort, kernel inputs), each kernel (the unfused pair summed over
-the frame's megachunks), the canvas init and finish -- and,
-from a torch.profiler trace of whole frames, the device-busy share of
-the frame and the number of device kernels launched per frame.  Needs a
-CUDA device.
+``--perstep``: with light_mode="march"; both are the warp engine's), then
+prints (with the card's name and power limit): the wall milliseconds per
+frame of each phase, timed alone between device synchronizations -- the
+sim step; for an animated preset the three bakes every frame holds (4-D
+volume bank, light bank, slab banks); for the warp engine (c2-c5) the
+render's host-side preparation (geometry, depth sort, kernel inputs),
+each kernel (the unfused pair summed over the frame's megachunks), the
+canvas init and finish; for the exact engine (c1) the binning, the pair
+march and the composite -- and, from a torch.profiler trace of whole
+frames, the device-busy share of the frame and the number of device
+kernels launched per frame.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -35,66 +36,18 @@ def _wall_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", default="c3")
-    ap.add_argument("--unfused", action="store_true",
-                    help="run the preset with warp_fused=False")
-    ap.add_argument("--perstep", action="store_true",
-                    help='run the preset with light_mode="march"')
-    ap.add_argument("--frames", type=int, default=4)
-    args = ap.parse_args(argv)
-
-    from volq_torch.engine import loop
+def _warp_phases(state, camera, light, cfg, sb, fused):
+    """The warp engine's render phases: name -> callable."""
     from volq_torch.render import kernel as K
     from volq_torch.render.warp import (fused_inputs, unfused_inputs,
-                                        bake_slab_banks, _canvas_finish)
-    from volq_torch.scene.config import PRESETS
-    from volq_torch.scene.state import bake_volumes
-    from volq_torch.sim import prng
-    from volq_torch.sim.emit import spawn_attrs
-    from volq_torch.sim.forces import total_force
-    from volq_torch.sim.step import sim_step
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    cfg = PRESETS[args.preset]()
-    fused = not args.unfused
-    if not fused:
-        cfg = dataclasses.replace(cfg, render=dataclasses.replace(
-            cfg.render, warp_fused=False))
-    if args.perstep:
-        cfg = dataclasses.replace(cfg, render=dataclasses.replace(
-            cfg.render, light_mode="march"))
+                                        _canvas_finish)
     H = cfg.render.height
-    state, camera, light = loop.setup(cfg)
-    lv = loop.cached_light_volumes(state, light, cfg)
-    sb = loop.cached_slab_banks(state, lv, cfg)
-    for _ in range(2):
-        state, _, _ = loop.frame(state, camera, light, cfg, lv, sb)
     dev = state.volumes.device
     inputs = fused_inputs if fused else unfused_inputs
-    bakes = {}
-    if cfg.volume.animated:
-        # nothing is cached: every frame bakes all three
-        lv_f = loop._light_volumes(state, light, cfg)
-        bakes = {
-            "4-D volume bank bake": _wall_ms(
-                lambda: bake_volumes(cfg, dev, state.time), 3),
-            "light bake": _wall_ms(
-                lambda: loop._light_volumes(state, light, cfg), 3),
-            "slab bake (both banks)": _wall_ms(
-                lambda: bake_slab_banks(state.volumes, lv_f, cfg), 3),
-        }
-        sb_frame = bake_slab_banks(state.volumes, lv_f, cfg)
-    else:
-        sb_frame = sb
 
     def prep():
-        return inputs(state.particles, camera, light, cfg, sb_frame[0], 0,
-                      H, sb_frame[1])
+        return inputs(state.particles, camera, light, cfg, sb[0], 0, H,
+                      sb[1])
 
     canvas = K.canvas_init(cfg, H, dev, fused=fused)
     if fused:
@@ -115,26 +68,106 @@ def main(argv=None) -> int:
                 lambda: [K.composite_chunk(canvas, im, *c)
                          for im, (_, c) in zip(images, chunks)],
         }
+    return {
+        f"render host prep ({inputs.__name__})": prep,
+        "canvas_init": lambda: K.canvas_init(cfg, H, dev, fused=fused),
+        **kernels,
+        "canvas finish": lambda: _canvas_finish(canvas[:3], canvas[3], cfg,
+                                                H),
+    }
+
+
+def _exact_phases(state, camera, light, cfg, sb, fused):
+    """The exact engine's render phases (plain tensor code, no kernel of
+    the port's): name -> callable."""
+    from volq_torch.render import exact
+    from volq_torch.render.binning import bin_particles
+    V = state.volumes.shape[-1]
+    bank2d = state.volumes.reshape(state.volumes.shape[0], -1)
+    pairs = bin_particles(state.particles, camera, cfg)
+    C, T = exact._march_pairs(pairs, state.particles, bank2d, V, camera,
+                              light, cfg)
+    return {
+        "bin_particles": lambda: bin_particles(state.particles, camera, cfg),
+        f"march of {pairs.pid.shape[0]} pair slots x {cfg.render.steps} "
+        "steps": lambda: exact._march_pairs(pairs, state.particles, bank2d,
+                                            V, camera, light, cfg),
+        "composite + assemble": lambda: exact.assemble_image(
+            exact.composite_pairs(pairs, C, T, cfg), cfg),
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", default="c3",
+                    choices=["c1", "c2", "c3", "c4", "c5"])
+    ap.add_argument("--unfused", action="store_true",
+                    help="run the preset with warp_fused=False")
+    ap.add_argument("--perstep", action="store_true",
+                    help='run the preset with light_mode="march"')
+    ap.add_argument("--frames", type=int, default=4)
+    args = ap.parse_args(argv)
+
+    from volq_torch.engine import loop
+    from volq_torch.render.warp import bake_slab_banks
+    from volq_torch.scene.config import PRESETS
+    from volq_torch.scene.state import bake_volumes
+    from volq_torch.sim import prng
+    from volq_torch.sim.emit import spawn_attrs
+    from volq_torch.sim.forces import total_force
+    from volq_torch.sim.step import sim_step
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    cfg = PRESETS[args.preset]()
+    fused = not args.unfused
+    if not fused:
+        cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+            cfg.render, warp_fused=False))
+    if args.perstep:
+        cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+            cfg.render, light_mode="march"))
+    if (args.unfused or args.perstep) and cfg.render.engine != "warp":
+        ap.error("--unfused and --perstep are flags of the warp engine")
+    state, camera, light = loop.setup(cfg)
+    lv = loop.cached_light_volumes(state, light, cfg)
+    sb = loop.cached_slab_banks(state, lv, cfg)
+    for _ in range(2):
+        state, _, _ = loop.frame(state, camera, light, cfg, lv, sb)
+    dev = state.volumes.device
+    bakes = {}
+    if cfg.volume.animated:
+        # nothing is cached: every frame bakes all three
+        lv_f = loop._light_volumes(state, light, cfg)
+        bakes = {
+            "4-D volume bank bake": lambda: bake_volumes(cfg, dev,
+                                                         state.time),
+            "light bake": lambda: loop._light_volumes(state, light, cfg),
+            "slab bake (both banks)":
+                lambda: bake_slab_banks(state.volumes, lv_f, cfg),
+        }
+        sb = bake_slab_banks(state.volumes, lv_f, cfg)
+    render = (_exact_phases if cfg.render.engine == "exact"
+              else _warp_phases)(state, camera, light, cfg, sb, fused)
     reps = 10
     p = state.particles
     key = prng.fold_in(state.base_key, state.frame)
     slots = torch.arange(p.age.shape[0], dtype=torch.int32, device=dev)
     phases = {
-        "sim_step": _wall_ms(lambda: sim_step(state, cfg), reps),
+        "sim_step": lambda: sim_step(state, cfg),
         **bakes,
-        "  of which spawn_attrs (threefry draws)": _wall_ms(
+        "  of which spawn_attrs (threefry draws)":
             lambda: spawn_attrs(key, slots, cfg.emitter,
-                                cfg.volume.bank_size), reps),
-        "  of which total_force (curl noise)": _wall_ms(
+                                cfg.volume.bank_size),
+        "  of which total_force (curl noise)":
             lambda: total_force(p.pos, p.vel, state.time, cfg.forces),
-            reps),
-        f"render host prep ({inputs.__name__})": _wall_ms(prep, reps),
-        "canvas_init": _wall_ms(
-            lambda: K.canvas_init(cfg, H, dev, fused=fused), reps),
-        **{name: _wall_ms(fn, reps) for name, fn in kernels.items()},
-        "canvas finish": _wall_ms(
-            lambda: _canvas_finish(canvas[:3], canvas[3], cfg, H), reps),
+        **render,
     }
+    phases = {name: _wall_ms(fn, reps) for name, fn in phases.items()}
+    if cfg.volume.animated:
+        lv = sb = None      # the traced frames bake their own
     frame_ms = _wall_ms(lambda: loop.frame(state, camera, light, cfg, lv,
                                            sb), reps)
 

@@ -44,6 +44,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from volq_torch._build import (check_tensor as _check, ptr as _ptr,
+                               stream as _stream)
 from volq_torch.scene.config import SceneConfig
 
 # per-particle geometry columns of warp_march's ``pgeom`` [N, PG_N]
@@ -175,26 +177,6 @@ def canvas_init(cfg: SceneConfig, h_local: int, device,
     c = torch.zeros((4, Hc, Wc), dtype=cdt, device=device)
     c[3] = 1
     return c
-
-
-def _check(t: torch.Tensor, name: str, dtypes, shape=None, device=None):
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
-    if device is not None and t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    """Device pointer of ``t`` (NULL for an absent optional input)."""
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 # --------------------------------------------------------------------------
@@ -489,7 +471,7 @@ def warp_march(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams,
     if dev.type != "cuda":
         return warp_march_plain(bank, vidx, pgeom, rx_u, ry_w, camf, p,
                                 lbank)
-    from volq_torch.render._build import load
+    from volq_torch._build import load
     fn = load("warp_march").warp_march_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] \
@@ -670,7 +652,7 @@ def warp_composite(canvas, Pm, ayf, axf, box, cc, valid,
     if dev.type != "cuda":
         return warp_composite_plain(canvas, Pm, ayf, axf, box, cc, valid,
                                     p, pdt, cc2)
-    from volq_torch.render._build import load
+    from volq_torch._build import load
     fn = load("warp_composite").warp_composite_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -723,7 +705,7 @@ def warp_images(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams, alb,
     if dev.type != "cuda":
         return warp_images_plain(bank, vidx, pgeom, rx_u, ry_w, camf, p,
                                  alb, lightf, lbank)
-    from volq_torch.render._build import load
+    from volq_torch._build import load
     fn = load("warp_images").warp_images_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] \
@@ -790,7 +772,7 @@ def composite_chunk(canvas, images, oy, ox, order, p: ChunkParams):
         _check(order, "order", (torch.int32,), (n,), dev)
     if dev.type != "cuda":
         return composite_chunk_plain(canvas, images, oy, ox, order, p)
-    from volq_torch.render._build import load
+    from volq_torch._build import load
     fn = load("composite_chunk").composite_chunk_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,

@@ -24,7 +24,8 @@ volume per ray at the particle's mid-depth step) or per-step lit
 cell canvas of ``warp_coarse`` / ``warp_canvas_scale``, with or without
 ``warp_interleave``'s association, in one piece or in ``warp_bands``
 horizontal bands.  ``check_supported`` raises NotImplementedError for
-the rest (other engines, the XLA warp path, ortho cameras).  Flags that
+the rest (the slab engine, the XLA warp path, ortho cameras under the
+warp engine).  Flags that
 change neither the image nor this path are accepted: ``warp_pair`` and
 ``warp_pack`` (TPU MXU-tile pairing and grid packing, bit-identical),
 ``warp_canvas_vmem`` (where the TPU keeps its canvas: storage only),
@@ -63,14 +64,17 @@ _MARCH_PERMS = {
 def check_supported(cfg: SceneConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for any mode
     outside the ported slice (no flag is silently ignored; which flag
-    combinations are valid at all is ``scene/config.py``'s check)."""
+    combinations are valid at all is ``scene/config.py``'s check).  The
+    exact engine (``render/exact.py``) takes both projections; the warp
+    engine is ported for its kernel path under a perspective camera."""
     r = cfg.render
+    warp = r.engine == "warp"
     unsupported = [
-        (r.engine != "warp", f"render engine {r.engine!r}",
-         "Queue 1 items 10-11"),
-        (not r.warp_pallas, "warp_pallas=False (the XLA warp path)",
-         "Queue 1 item 5"),
-        (cfg.camera.projection != "persp", "orthographic camera",
+        (r.engine == "slab", "the slab engine", "Queue 1 item 11"),
+        (warp and not r.warp_pallas,
+         "warp_pallas=False (the XLA warp path)", "Queue 1 item 5"),
+        (warp and cfg.camera.projection != "persp",
+         "an orthographic camera under the warp engine",
          "Queue 1 items 4-5"),
     ]
     for bad, what, item in unsupported:

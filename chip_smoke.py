@@ -22,9 +22,19 @@ final result line):
      exact engine), 2 frames with --png --npy --checkpoint, then --resume
      for one more frame, which must equal the third frame of an
      uninterrupted 3-frame run; c1's first frame against the same frame
-     with --device cpu within 1e-5; preset c2 as shipped (512 x 512 warp)
-     from zeroed counters, which must show launches of A and B and a
-     plausible image;
+     with --device cpu within 1e-5; c1 through the warp engine at full
+     size (256 x 256 ortho, 32 steps, V 32, march rect 128), (i) with
+     render.engine=warp (the XLA path: no kernel launches) and (ii) with
+     warp_pallas=true (A and B in their orthographic mode: one launch
+     each), each against --device cpu within 1e-5 and (i) against (ii)
+     within the reference's fp32 budget 1e-5, then both timed with
+     time_frames; preset c2 as shipped (512 x 512 warp) from zeroed
+     counters, which must show launches of A and B and a plausible image;
+  2c. preset c2 as shipped and with warp_pallas=false (the XLA path in
+     plain torch): frames from zeroed counters (A 1, B 1 per frame / no
+     kernel), the two paths' images of one state within 6/256 in bf16
+     and 1e-4 in fp32, A and B timed against their bounds on c2's inputs,
+     both loops timed (ms/frame side by side);
   3. set up preset c3 at full size (1024 particles, 1024 x 128^3 bank,
      1920x1080) and bake its slab banks;
   4. hold kernels A (warp_march) and B (warp_composite) against their
@@ -41,6 +51,10 @@ final result line):
      with engine.loop.time_frames on the state already set up; then the
      command line's --bench --frames 16 --frames-per-launch 8 on that same
      state (its one JSON line parsed, mrays_per_s > 0);
+  5b. c3's state and slab banks under an orthographic camera whose half
+     height frames the alive particles (printed): A in its ortho mode and
+     B held against their plain versions as in phase 4, frames(n=8) from
+     zeroed counters (A 1, B 1 per frame), A and B timed;
   6. set up preset c4 at full size (4096 particles, 64 x 64^3 bank,
      center-lit: the light bake and both slab banks);
   7. hold A and B in center-lit mode (two planes) and the unfused pair,
@@ -66,6 +80,10 @@ final result line):
      shapes, drive both loops from zeroed counters (A 1, B 1 / C 2, D 2
      per frame), compare the fused and unfused images within the budgets
      of phase 8, time the kernels and both loops;
+  9b. c4 with warp_fused=False under an orthographic camera framing its
+     particles: C in its ortho mode and D held against their plain
+     versions as in phase 7, frames(n=4) from zeroed counters (C 2, D 2
+     per frame), C and D timed;
  10. c4 with warp_bands=2, warp_canvas_vmem=1 and, unpaired,
      warp_hazard_passes=1: the image must equal c4's plain image of the
      same state exactly;
@@ -82,9 +100,12 @@ final result line):
      every frame re-bakes the bank), check the image, time the kernels and
      the loop: the one timed walk of B's plain version holds B on every
      particle of a c5 frame;
- 12. print the kernels JSON line, seven entries (per warp kernel:
-     launches, error, ms, plain ms and bound on the c4 path, with the c3,
-     c4 per-step and c5 paths' numbers under "c3", "c4_perstep" and "c5";
+ 12. print the kernels JSON line, nine entries (per warp kernel:
+     launches, error, ms, plain ms and bound on the c4 path, with the c2,
+     c3, ortho, c4 per-step and c5 paths' numbers under "c2", "c3",
+     "c3_ortho", "c4_ortho", "c4_perstep" and "c5"; "warp_march ortho"
+     and "warp_images ortho": A's and C's orthographic mode on the c3
+     and c4 ortho paths;
      per probe kernel: launches of the probes' run, error, and ms, plain
      ms, bound and -- probe_mma -- the time of one torch.matmul over the
      same operands at one named point), the card line, and last the result
@@ -119,6 +140,9 @@ RUN = 4096
 # the c4-class bf16 rows, and the reference's fp32 budget between two paths
 BF16_BUDGET = 6 / 256
 FP32_BUDGET = 1e-4
+# the XLA warp path against the Pallas path: the reference's fp32 budget
+# (tests/test_warp.py:233)
+XLA_BUDGET = 1e-5
 NAMES = ("warp_march", "warp_composite", "warp_images", "composite_chunk")
 PROBES = ("probe_mma", "probe_stage", "probe_window")
 # probe_mma against its fp64 plain version, relative to max |out|
@@ -173,6 +197,28 @@ def _wall_ms(fn, reps: int) -> float:
 
 def _mode(cfg) -> str:
     return "fp32" if cfg.render.warp_fp32 else "bf16"
+
+
+def ortho_view(cfg, state, camera):
+    """``cfg`` under an orthographic camera (same eye and look-at) whose
+    half height frames the alive particles: the larger of their extent
+    along up and their extent along right over the aspect, plus 5%.
+    Returns (config, camera on the card, half height)."""
+    import torch
+    from volq_torch.scene.state import build_camera
+    p = state.particles
+    alive = p.age < p.lifetime
+    rel = (p.pos.float() - camera.eye)[alive]
+    half = p.size.float()[alive]
+    ext_x = float(((rel * camera.right).sum(-1).abs() + half).max())
+    ext_y = float(((rel * camera.up).sum(-1).abs() + half).max())
+    aspect = cfg.render.width / cfg.render.height
+    hh = round(max(ext_y, ext_x / aspect) * 1.05, 3)
+    ocfg = dataclasses.replace(cfg, camera=dataclasses.replace(
+        cfg.camera, projection="ortho", ortho_half_h=hh))
+    cam = build_camera(ocfg.camera, cfg.render.width, cfg.render.height,
+                       torch.device("cuda"))
+    return ocfg, cam, hh
 
 
 def _wrappers():
@@ -718,6 +764,43 @@ def drive_cli(card):
         assert np.array_equal(full, rest), "resume is not frame-exact"
         assert d <= 1e-5, f"exact engine on the card vs the CPU: {d}"
 
+        # c1 through the warp engine: (i) as shipped plus engine=warp, the
+        # XLA path (plain torch, no kernel); (ii) warp_pallas=true, kernels
+        # A and B in their orthographic mode.  Each on the card and on the
+        # CPU; (i) against (ii) within the reference's fp32 budget
+        warp = ["--set", "render.engine=warp"]
+        imgs = {}
+        for tag, flags, want in (
+                ("xla", warp, {}),
+                ("pallas", warp + ["--set", "render.warp_pallas=true"],
+                 {"warp_march": 1, "warp_composite": 1})):
+            _zero_counts()
+            t0 = time.perf_counter()
+            assert cli(["--preset", "c1", "--frames", "1", "--out",
+                        j("w" + tag), "--npy"] + flags) == 0
+            dt = time.perf_counter() - t0
+            counts = _counts()
+            assert cli(["--preset", "c1", "--device", "cpu", "--frames",
+                        "1", "--out", j("w" + tag + "_cpu"), "--npy"]
+                       + flags) == 0
+            img = np.load(j("w" + tag, "frame_0000.npy"))
+            cpu = np.load(j("w" + tag + "_cpu", "frame_0000.npy"))
+            d = float(np.abs(img - cpu).max())
+            imgs[tag] = img
+            print(f"[main] cli c1 engine=warp {tag} (256 x 256 ortho, 32 "
+                  f"steps, V 32): 1 frame on the card in {dt:.2f} s, "
+                  f"launches {counts}; card vs CPU max diff {d:.3e}; alpha "
+                  f"max {float(img[..., 3].max()):.4f}")
+            assert img.shape == (256, 256, 4) and np.isfinite(img).all()
+            assert img[..., 3].max() > 0.05
+            assert d <= 1e-5, f"c1 warp {tag}: card vs CPU {d}"
+            for name in NAMES:
+                assert counts[name] == want.get(name, 0), (tag, counts)
+        d = float(np.abs(imgs["xla"] - imgs["pallas"]).max())
+        print(f"[main] cli c1 engine=warp: XLA path vs Pallas path (A, B "
+              f"ortho) max diff {d:.3e} (budget {XLA_BUDGET:.0e}, fp32)")
+        assert d <= XLA_BUDGET, f"c1 XLA vs Pallas path: {d}"
+
         _zero_counts()
         t0 = time.perf_counter()
         assert cli(["--preset", "c2", "--frames", "2", "--out", j("c2"),
@@ -733,6 +816,59 @@ def drive_cli(card):
         assert img.shape == (512, 512, 4) and np.isfinite(img).all()
         assert 0.05 < img[..., 3].max() <= 1.0 + 1e-6 and cover > 0.05
     return counts
+
+
+def time_c1_warp(card):
+    """ms/frame of preset c1 under engine=warp on its XLA path and on its
+    Pallas path (A and B ortho), each on its own state."""
+    from volq_torch.engine import loop
+    from volq_torch.scene.config import c1
+    warp = _with(c1(), engine="warp")
+    for tag, cfg in (("c1 warp xla", warp),
+                     ("c1 warp pallas", _with(warp, warp_pallas=True))):
+        state, camera, light = loop.setup(cfg)
+        sb = loop.cached_slab_banks(state, None, cfg)
+        time_loop(tag, (state, camera, light, None, sb), cfg, card,
+                  n_frames=8)
+
+
+def run_c2(card, errs):
+    """Preset c2 as shipped (Pallas path: A and B) and with
+    warp_pallas=false (the XLA path, plain torch): the XLA path's frames
+    launch no kernel; the two paths' images of one state agree (fp32
+    within FP32_BUDGET, bf16 within BF16_BUDGET); A and B timed against
+    their bounds on c2's inputs; both loops timed.  Returns (A/B times,
+    A/B launches of the Pallas run)."""
+    import torch
+    from volq_torch.engine import loop
+    from volq_torch.render.warp import render_warp
+    from volq_torch.scene.config import c2
+    cfg = c2()
+    xcfg = _with(cfg, warp_pallas=False)
+    state, camera, light = loop.setup(cfg)
+    sb = loop.cached_slab_banks(state, None, cfg)
+    assert loop.cached_slab_banks(state, None, xcfg) is None
+    fused = {"warp_march": 1, "warp_composite": 1}
+    st_x, _, _ = drive("c2 xla", state, camera, light, xcfg, None, None, 2,
+                       {})
+    st_p, _, counts = drive("c2", state, camera, light, cfg, None, sb, 2,
+                            fused)
+    for budget, conv in ((BF16_BUDGET, lambda c: c), (FP32_BUDGET, _fp32)):
+        pc, xc = conv(cfg), conv(xcfg)
+        banks = loop.cached_slab_banks(st_p, None, pc)
+        img_p = render_warp(st_p.particles, st_p.volumes, camera, light, pc,
+                            slab_banks=banks)[0]
+        img_x = render_warp(st_p.particles, st_p.volumes, camera, light,
+                            xc)[0]
+        d = float((img_p - img_x).abs().max())
+        print(f"[main] c2 Pallas path vs XLA path image of one state, "
+              f"{_mode(pc)}: max diff {d:.3e} (budget {budget:.3e})")
+        assert d <= budget, f"c2 XLA vs Pallas path, {_mode(pc)}: {d}"
+    times = time_fused("c2", st_p, camera, light, cfg, sb, card, errs)
+    for tag, c, banks, st in (("c2", cfg, sb, st_p),
+                              ("c2 xla", xcfg, None, st_x)):
+        time_loop(tag, (st, camera, light, None, banks), c, card, n_frames=8)
+    return times, counts
 
 
 def bench_cli(prepared, card):
@@ -784,6 +920,8 @@ def main() -> int:
     probe_counts, _ = run_probes(card)
     probe_times = time_probes(card)
     drive_cli(card)
+    time_c1_warp(card)
+    c2_times, c2_counts = run_c2(card, errs)
 
     # ---- c3: the unlit fused path
     cfg = c3()
@@ -807,7 +945,21 @@ def main() -> int:
     c3_times = time_fused("c3", state, camera, light, cfg, sb, card, errs)
     time_loop("c3", (state, camera, light, None, sb), cfg, card)
     bench_cli((state, camera, light, None, sb), card)
-    del state, sb
+
+    # ---- c3 under an orthographic camera: A's ortho mode (+ B), on c3's
+    # state and slab banks (the march axis and the banks do not depend on
+    # the projection)
+    ocfg, ocam, hh = ortho_view(cfg, state, camera)
+    print(f"[setup] c3 ortho: ortho_half_h {hh} (frames the alive "
+          f"particles), march axis and slab banks of c3")
+    oerrs = dict.fromkeys(NAMES, 0.0)
+    check_fused("c3 ortho", sim_step(state, ocfg), ocam, light, ocfg, None,
+                oerrs)
+    st_o, _, c3o_counts = drive("c3 ortho", state, ocam, light, ocfg, None,
+                                sb, N_FRAMES, fused)
+    c3o_times = time_fused("c3 ortho", st_o, ocam, light, ocfg, sb, card,
+                           oerrs)
+    del state, sb, st_o
     torch.cuda.empty_cache()
 
     # ---- c4: center-lit, as shipped (fused) and with warp_fused=False
@@ -879,7 +1031,17 @@ def main() -> int:
     for tag, st, c in (("c4 per-step fused", sp_f, pcfg),
                        ("c4 per-step unfused", sp_u, pucfg)):
         time_loop(tag, (st, camera, light, lv, psb), c, card)
-    del state, st_f, st_u, sp_f, sp_u, sb, psb, lv
+
+    # ---- c4 unfused under an orthographic camera: C's ortho mode (+ D)
+    oucfg, ocam4, hh4 = ortho_view(ucfg, state, camera)
+    print(f"[setup] c4 ortho: ortho_half_h {hh4} (frames the alive "
+          f"particles), warp_fused=False, c4's light and slab banks")
+    check_unfused("c4 ortho", sim_step(state, oucfg), ocam4, light, oucfg,
+                  lv, oerrs)
+    so_u, _, c4o_counts = drive("c4 ortho unfused", state, ocam4, light,
+                                oucfg, lv, sb, N_FRAMES_UNFUSED, unfused)
+    c4o_times = time_unfused("c4 ortho", so_u, ocam4, light, oucfg, sb, card)
+    del state, st_f, st_u, sp_f, sp_u, so_u, sb, psb, lv
     torch.cuda.empty_cache()
 
     # ---- c5: animated 4-D bank, coarse + interleaved cell canvas, 4K
@@ -937,12 +1099,24 @@ def main() -> int:
              "max_abs_err": errs[name], **c4_times[name],
              "library_ms": None, "path": "c4"}
         # the other paths through the same kernel
-        for path, counts, times in (("c3", c3_counts, c3_times),
+        for path, counts, times in (("c2", c2_counts, c2_times),
+                                    ("c3", c3_counts, c3_times),
+                                    ("c3_ortho", c3o_counts, c3o_times),
+                                    ("c4_ortho", c4o_counts, c4o_times),
                                     ("c4_perstep", p_counts, p_times),
                                     ("c5", c5_counts, c5_times)):
             if name in times:
                 k[path] = {"launches": counts[name], **times[name]}
         kernels.append(k)
+    # the orthographic mode of A (c3's state) and of C (c4's, unfused)
+    for name, path, counts, times in (
+            ("warp_march", "c3_ortho", c3o_counts, c3o_times),
+            ("warp_images", "c4_ortho", c4o_counts, c4o_times)):
+        kernels.append({
+            "name": f"{name} ortho", "route": "cuda",
+            "source": sources[name], "replaces": replaces[name],
+            "launches": counts[name], "max_abs_err": oerrs[name],
+            **times[name], "library_ms": None, "path": path})
     for name in PROBES:
         k = {"name": name, "route": "cuda", "source": sources[name],
              "replaces": replaces[name], "launches": probe_counts[name],

@@ -50,15 +50,19 @@ def test_cli_frames_per_launch(tmp_path):
 
 
 def test_cli_warp_engine(tmp_path):
-    out = tmp_path / "warp"
-    rc = main(["--preset", "c1", "--frames", "1", "--out", str(out),
-               "--npy", "--set", "render.engine=warp",
-               "--set", "render.warp_pallas=true",
-               "--set", "camera.projection=persp",
-               "--set", "render.warp_rect=96"] + _SHRINK + _CPU)
+    """The reference's flags (tests/test_cli.py): c1's ortho camera under
+    the warp engine's default XLA path; the frame equals volq.cli's
+    within 1e-5 (fp32)."""
+    out, ref = tmp_path / "warp", tmp_path / "jax"
+    flags = ["--preset", "c1", "--frames", "1", "--npy",
+             "--set", "render.engine=warp",
+             "--set", "render.warp_rect=96"] + _SHRINK
+    rc = main(flags + ["--out", str(out)] + _CPU)
     assert rc == 0
     a = np.load(out / "frame_0000.npy")
     assert a.shape == (64, 128, 4) and a[..., 3].max() > 0.05
+    assert jax_main(flags + ["--out", str(ref)]) == 0
+    assert np.abs(a - np.load(ref / "frame_0000.npy")).max() <= 1e-5
 
 
 @pytest.mark.parametrize("preset", ["c1", "c2", "c3", "c4", "c5"])
@@ -148,13 +152,34 @@ def test_cli_checkpoint_then_resume(tmp_path):
 
 
 def test_cli_warmup_steps_the_sim(tmp_path):
+    """--warmup is parsed and ignored, as volq.cli does: --warmup 2 gives
+    the frames of --warmup 0 (engine.loop.run(warmup=) does step the
+    sim: test_loop_run_warmup_steps_the_sim)."""
     a, b = tmp_path / "a", tmp_path / "b"
-    main(["--preset", "c1", "--frames", "3", "--out", str(a), "--npy"]
+    main(["--preset", "c1", "--frames", "2", "--out", str(a), "--npy"]
          + _SHRINK + _EMIT + _CPU)
-    main(["--preset", "c1", "--frames", "1", "--warmup", "2", "--out",
+    main(["--preset", "c1", "--frames", "2", "--warmup", "2", "--out",
           str(b), "--npy"] + _SHRINK + _EMIT + _CPU)
-    assert np.array_equal(np.load(a / "frame_0002.npy"),
-                          np.load(b / "frame_0000.npy"))
+    for f in ("frame_0000.npy", "frame_0001.npy"):
+        assert np.array_equal(np.load(a / f), np.load(b / f))
+    assert not np.array_equal(np.load(a / "frame_0000.npy"),
+                              np.load(a / "frame_0001.npy"))
+
+
+def test_loop_run_warmup_steps_the_sim():
+    """engine.loop.run keeps its warmup: that many un-rendered sim steps
+    before the first frame."""
+    from volq_torch.cli import _apply_override
+    from volq_torch.engine import loop
+    from volq_torch.scene.config import c1
+    cfg = c1()
+    flags = (_SHRINK + _EMIT)[1::2]
+    for kv in flags:
+        cfg = _apply_override(cfg, kv)
+    _, full, _ = loop.run(cfg, 3, device="cpu")
+    _, warm, _ = loop.run(cfg, 1, warmup=2, device="cpu")
+    assert np.array_equal(full[2], warm[0])
+    assert not np.array_equal(full[0], warm[0])
 
 
 def test_cli_bench_prints_one_json_line(capsys):

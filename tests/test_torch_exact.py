@@ -240,9 +240,10 @@ def test_empty_scene_is_background():
 
 
 def test_engine_dispatch(tiny_cfg):
-    """render_frame takes the exact engine (both projections) and still
-    raises for the slab engine, the XLA warp path and an ortho camera
-    under the warp engine, naming the ROADMAP item."""
+    """render_frame takes the exact engine (both projections) and the
+    warp engine (its XLA path, the default, and its Pallas path under an
+    ortho camera) and still raises for the slab engine, naming the
+    ROADMAP item."""
     cfg = _port(tiny_cfg)
     state, camera, light = TL.setup(cfg, device="cpu")
     img, _ = render_frame(state.particles, state.volumes, camera, light, cfg)
@@ -252,12 +253,20 @@ def test_engine_dispatch(tiny_cfg):
     assert TL.cached_light_volumes(state, light, cfg) is None
     TL.setup(_port(_ortho_c1()), device="cpu")
     rep = dataclasses.replace
-    for bad in (rep(cfg, render=rep(cfg.render, engine="slab")),
-                rep(cfg, render=rep(cfg.render, engine="warp")),
-                rep(cfg, camera=rep(cfg.camera, projection="ortho"),
-                    render=rep(cfg.render, engine="warp",
-                               warp_pallas=True))):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            render_frame(state.particles, state.volumes, camera, light, bad)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            TL.setup(bad, device="cpu")
+    slab = rep(cfg, render=rep(cfg.render, engine="slab"))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        render_frame(state.particles, state.volumes, camera, light, slab)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        TL.setup(slab, device="cpu")
+    for good in (rep(cfg, render=rep(cfg.render, engine="warp")),
+                 rep(cfg, camera=rep(cfg.camera, projection="ortho",
+                                     ortho_half_h=2.0),
+                     render=rep(cfg.render, engine="warp",
+                                warp_pallas=True))):
+        st, cam, li = TL.setup(good, device="cpu")
+        img, stats = render_frame(st.particles, st.volumes, cam, li, good)
+        assert tuple(img.shape) == (64, 128, 4)
+        assert bool(torch.isfinite(img).all())
+        assert float(img[..., 3].max()) > 0.05 and int(stats["rendered"]) > 0
+        assert (TL.cached_slab_banks(st, None, good) is None) \
+            == (not good.render.warp_pallas)

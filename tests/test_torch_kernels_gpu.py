@@ -10,7 +10,9 @@ count, warp_composite and composite_chunk bit-equal (chip_smoke.py holds
 the same at c3, c4 and c5 scale).  Every mode of the kernels has a case:
 unlit, center-lit, per-step lit (also with every particle behind the
 eye plane, steps reversed); pixel, coarse and scaled canvases, with and
-without the interleaved association.
+without the interleaved association; the orthographic mode of A and C
+(also at a march rect of 128, the largest A and C take); and the warp
+engine's XLA path (plain torch) on the card against the CPU.
 """
 import dataclasses
 
@@ -369,3 +371,85 @@ def test_probe_window_matches_plain(align):
     blank = torch.zeros((24, 256), device="cuda")
     assert probe.window_probe(blank, off[:0].cuda(), align) is blank
     assert probe.window_probe.launches == n0
+
+
+# --------------------------------------------------------------------------
+# the orthographic mode of kernels A and C, and the XLA path on the card
+
+def _ortho(cfg, half_h=2.0):
+    return dataclasses.replace(cfg, camera=dataclasses.replace(
+        cfg.camera, projection="ortho", ortho_half_h=half_h))
+
+
+@pytest.mark.parametrize("fp32", [False, True], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("light", ["unlit", "center", "perstep"])
+@pytest.mark.parametrize("view", ["yawed", "behind"])
+def test_ortho_kernels_match_plain(view, light, fp32):
+    """A (+ B) and C (+ D) in their orthographic mode against their
+    plain versions, each lighting mode, looking along +z and -z."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    kw = {"unlit": {}, "center": LIT, "perstep": PERSTEP}[light]
+    cfg = _ortho(_scene(EYES[view], fp32, **kw))
+    state, camera, light_ = loop.setup(cfg, device="cuda")
+    lv = loop.cached_light_volumes(state, light_, cfg)
+    bank, lbank = loop.cached_slab_banks(state, lv, cfg)
+    march, _, _ = _fused_check(cfg, state, camera, light_, bank, lbank)
+    assert march[6].ortho == 1
+    ucfg = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, warp_fused=False, warp_mega=8))
+    chunks, _ = unfused_inputs(state.particles, camera, light_, ucfg, bank,
+                               0, cfg.render.height, lbank)
+    for img_args, _ in chunks:
+        images, clamp = K.warp_images(*img_args)
+        ref, ref_clamp = K.warp_images_plain(*img_args)
+        assert float((images.float() - ref.float()).abs().max()) <= 1e-5
+        assert torch.equal(clamp, ref_clamp)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_ortho_kernels_at_march_rect_128(fused):
+    """RM = 128 (a rect of 128 marched at full resolution, c1's under
+    the warp engine): 16384 rays a block and a 64 KB fan plane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    cfg = _ortho(_scene(EYES["pitched"], True, warp_fused=fused),
+                 half_h=1.0)
+    cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, warp_rect=128, warp_march_rect=0, warp_slab_vx=0,
+        steps=32))
+    state, camera, light = loop.setup(cfg, device="cuda")
+    bank = loop.cached_slab_banks(state, None, cfg)[0]
+    if fused:
+        march, _, _ = _fused_check(cfg, state, camera, light, bank, None)
+        assert march[6].RM == 128
+        return
+    chunks, _ = unfused_inputs(state.particles, camera, light, cfg, bank, 0,
+                               cfg.render.height)
+    images, clamp = K.warp_images(*chunks[0][0])
+    ref, ref_clamp = K.warp_images_plain(*chunks[0][0])
+    assert float((images.float() - ref.float()).abs().max()) <= 1e-5
+    assert torch.equal(clamp, ref_clamp)
+
+
+@pytest.mark.parametrize("proj", ["persp", "ortho"])
+def test_xla_path_on_the_card_matches_cpu(proj):
+    """The XLA path (plain torch, no kernel) renders on the card as on the
+    CPU, and launches none of the kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = _scene(EYES["yawed"], True)
+    cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, warp_pallas=False))
+    if proj == "ortho":
+        cfg = _ortho(cfg)
+    fns = (K.warp_march, K.warp_composite, K.warp_images, K.composite_chunk)
+    n0 = [fn.launches for fn in fns]
+    imgs = []
+    for dev in ("cuda", "cpu"):
+        state, camera, light = loop.setup(cfg, device=dev)
+        assert loop.cached_slab_banks(state, None, cfg) is None
+        imgs.append(loop.render_only(state, camera, light, cfg)[0].cpu())
+    assert [fn.launches for fn in fns] == n0
+    assert float(imgs[0][..., 3].max()) > 0.05
+    assert float((imgs[0] - imgs[1]).abs().max()) <= 1e-5

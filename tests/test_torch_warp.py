@@ -155,34 +155,45 @@ UNSUPPORTED = [
     dict(warp_bands=2),
     dict(warp_hazard_passes=1),
 ]
-STILL_OUTSIDE = ("engine", "warp_pallas")
+STILL_OUTSIDE = ("engine",)
 
 
 @pytest.mark.parametrize("kw", UNSUPPORTED, ids=lambda kw: ",".join(kw))
 def test_flags_outside_the_slice_raise(tiny_cfg, kw):
-    """The slab engine and the XLA warp path raise, naming the ROADMAP
-    item (the exact engine is ported: tests/test_torch_exact.py).  The
-    other flags have joined the slice: each is accepted on its own, renders (tests/test_torch_warp_c5.py, test_torch_perstep.py),
-    and still raises under a camera that is outside the slice."""
+    """Only the slab engine still raises, naming the ROADMAP item.  Every
+    other flag has joined the port (the XLA warp path:
+    tests/test_torch_warp_xla.py; the rest: test_torch_warp_c5.py,
+    test_torch_perstep.py) and is accepted under both projections."""
     base = c3_flags(tiny_cfg)
     cfg = _port(dataclasses.replace(
         base, render=dataclasses.replace(base.render, **kw)))
-    if not set(kw) & set(STILL_OUTSIDE):
+    ortho = dataclasses.replace(cfg, camera=dataclasses.replace(
+        cfg.camera, projection="ortho"))
+    if set(kw) & set(STILL_OUTSIDE):
+        for c in (cfg, ortho):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                tw.check_supported(c)
+    else:
         tw.check_supported(cfg)
-        cfg = dataclasses.replace(cfg, camera=dataclasses.replace(
-            cfg.camera, projection="ortho"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tw.check_supported(cfg)
+        tw.check_supported(ortho)
 
 
 def test_ortho_and_animated_raise(tiny_cfg):
-    """An ortho camera still raises; animated volumes are accepted now,
-    alone and with every flag that joined the slice with them."""
+    """An ortho camera is accepted and renders through the Pallas path's
+    kernels (their plain versions here: A and B in their orthographic
+    mode), as do animated volumes, alone and with every flag that joined
+    the port with them."""
     base = _port(c3_flags(tiny_cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tw.check_supported(dataclasses.replace(
-            base, camera=dataclasses.replace(base.camera,
-                                             projection="ortho")))
+    ortho = dataclasses.replace(base, camera=dataclasses.replace(
+        base.camera, projection="ortho", ortho_half_h=2.0))
+    tw.check_supported(ortho)
+    st, cam, li, tst, tcam, tli = _scene(c3_flags(tiny_cfg))
+    from volq_torch.scene.state import build_camera
+    ocam = build_camera(ortho.camera, 128, 64, "cpu")
+    img, stats = tw.render_warp(tst.particles, tst.volumes, ocam, tli, ortho)
+    assert tuple(img.shape) == (64, 128, 4)
+    assert bool(torch.isfinite(img).all()) and float(img[..., 3].max()) > 0.05
+    assert int(stats["rendered"]) > 0 and int(stats["straddled"]) == 0
     animated = dataclasses.replace(base, volume=dataclasses.replace(
         base.volume, animated=True))
     tw.check_supported(animated)
@@ -197,6 +208,42 @@ def test_ortho_and_animated_raise(tiny_cfg):
         tw.check_supported(dataclasses.replace(
             c4, render=dataclasses.replace(c4.render, light_mode="march",
                                            warp_fused=fused)))
+
+
+@pytest.mark.parametrize("fp32", [False, True], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("steps", [16, 20])
+def test_steps_at_least_V_match_jax_and_oracle(tiny_cfg, steps, fp32):
+    """With steps >= V the reference streams the volumes and lerps in the
+    kernel (``use_slab_banks`` False); the port marches its slab banks,
+    the same lerp with the same rounding points.  What differs is XLA's
+    jit of the interpreted kernel: it contracts ``lo_z + zeta*ext`` into
+    a multiply-add and, for S = 20, divides ``(s + 0.5) / S`` as a
+    reciprocal multiply.  bf16 is held to one bf16 ulp of the canvas's
+    largest values (2^-8, the spacing in [0.5, 1) where T and alpha
+    live) against the JAX Pallas path -- a flipped rounding of C or T
+    moves a pixel by that much at most --, fp32 to the file's 1e-4, and
+    both to the oracle's budgets."""
+    cfg = dataclasses.replace(tiny_cfg, render=dataclasses.replace(
+        tiny_cfg.render, engine="warp", warp_pallas=True, warp_rect=48,
+        steps=steps, warp_fp32=fp32, warp_canvas_fp32=fp32))
+    assert not jw.use_slab_banks(cfg, 16) and not tw.use_slab_banks(
+        _port(cfg), 16)
+    st, cam, li, tst, tcam, tli = _scene(cfg)
+    ref, ref_stats = render_only(st, cam, li, cfg)
+    ref = np.asarray(ref, np.float64)
+    oracle = render_warp_oracle(st.particles, st.volumes, cam, li, cfg)
+    img, stats = tw.render_warp(tst.particles, tst.volumes, tcam, tli,
+                                _port(cfg))
+    img = img.numpy().astype(np.float64)
+    assert img[..., 3].max() > 0.05
+    if fp32:
+        assert np.abs(img - ref).max() <= 1e-4
+        assert np.abs(img - oracle).max() <= 1e-3
+    else:
+        assert np.abs(img - ref).max() <= 2.0 ** -8
+        assert np.abs(img - oracle).max() <= 4 / 256
+    for k in STATS:
+        assert int(stats[k]) == int(ref_stats[k]), k
 
 
 def test_kernel_wrappers_on_cpu_run_plain_and_count_nothing(tiny_cfg):

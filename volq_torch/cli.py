@@ -56,7 +56,8 @@ def _parser() -> argparse.ArgumentParser:
                     "engine.loop.frames (bit-identical; only every Nth "
                     "frame's image is fetched and saved)")
     ap.add_argument("--warmup", type=int, default=0,
-                    help="un-rendered sim steps before the first frame")
+                    help="accepted and ignored, as by volq.cli (the "
+                    "frames do not depend on it)")
     ap.add_argument("--out", default="out")
     ap.add_argument("--png", action="store_true", help="save PNG frames")
     ap.add_argument("--npy", action="store_true", help="save npy frames")
@@ -119,7 +120,6 @@ def main(argv=None, prepared=None):
     from volq_torch.engine import loop, io, checkpoint
     from volq_torch.render import check_supported
     from volq_torch.scene.state import build_camera, build_light
-    from volq_torch.sim.step import sim_step
 
     if args.bench:
         # the shared harness (engine/loop.time_frames): frames batched per
@@ -154,8 +154,6 @@ def main(argv=None, prepared=None):
         light = build_light(cfg.light, device)
     else:
         state, camera, light = loop.setup(cfg, device)
-    for _ in range(args.warmup):
-        state = sim_step(state, cfg)
 
     fpl = max(args.frames_per_launch, 1)
     if args.gif and fpl > 1:

@@ -18,9 +18,10 @@
 // Scalar parameters of the march (mirrors MarchParams in
 // volq_torch/render/kernel.py).  lit: kUnlit, kCenter (one light sample at
 // step mid) or kPerStep (density and light sampled at every step, OVER
-// recurrence); RP / ratio_m: the rect the unfused path upsamples to.
+// recurrence); RP / ratio_m: the rect the unfused path upsamples to; ortho:
+// an orthographic camera (the launch picks the ORTHO instantiation).
 struct MarchParams {
-  int N, S, VX, V, RM, row_fan, lit, mid, RP;
+  int N, S, VX, V, RM, row_fan, lit, mid, RP, ortho;
   float gsc, gscx, Sf, ratio, Kc, Kc_hi, rm_hi, W, H, two_over_W, two_over_H,
       ratio_m;
 };
@@ -100,7 +101,7 @@ __device__ __forceinline__ void axis_seg(float o, float d, float lo, float hi,
 }
 
 constexpr int kMarchThreads = 256;
-constexpr int kMaxPerThread = 32;   // RM * RM <= 8192
+constexpr int kMaxPerThread = 64;   // RM * RM <= 16384 (RM <= 128)
 
 // One slab sample of ray (gx, gy): sum over the two x taps of
 // rnd(wy0 * slab[a, b0] + wy1 * slab[a, b0 + 1]) * wx.
@@ -122,12 +123,28 @@ __device__ __forceinline__ float slab_sample(const T* slab, int VX, int V,
   return acc;
 }
 
+// The orthographic ray slopes kx = fwd_x / fz_s, ky = fwd_y / fz_s, with
+// fz_s = fwd_z kept at least 1e-6 (the reference's _EPS) away from 0.
+struct OrthoSlopes {
+  float fz_s, kx, ky;
+  __device__ __forceinline__ explicit OrthoSlopes(const float* camf) {
+    const float fz = camf[11];
+    fz_s = fabsf(fz) < 1e-6f ? (fz >= 0.f ? 1e-6f : -1e-6f) : fz;
+    kx = camf[9] / fz_s;
+    ky = camf[10] / fz_s;
+  }
+};
+
 // The closed-form fan shift of one particle (render/warp.fan_shifts) at
 // march resolution: the column shift du(j, i) and, for yawed / rolled
 // cameras, the row shift dw(j, i), clamped to +-Kc cells and to the plane.
+// Perspective: the rational form; orthographic (ORTHO): rx is affine in the
+// pixel, so du = doy_j * Bx / (dox_step * Ax) is constant along a row and
+// dw = dox_i * Ay / (doy_step * By) along a column.
+template <bool ORTHO>
 struct Fan {
   float sx0, sy0, pxc, pyc, rxc, ryc, rzc, uxc, uyc, uzc, fwd_x, fwd_y, fwd_z,
-      sxs, sys, dox_step, doy_step, dyk, dxk;
+      sxs, sys, dox_step, doy_step, dyk, dxk, Ax, Bx, Ay, By;
   __device__ __forceinline__ Fan(const float* g, const float* camf,
                                  const MarchParams& p) {
     sx0 = g[PG_SX0]; sy0 = g[PG_SY0]; pxc = g[PG_PXC]; pyc = g[PG_PYC];
@@ -139,22 +156,34 @@ struct Fan {
     doy_step = -2.f * sys / p.H * p.ratio;
     dyk = 2.f * sys / p.H;
     dxk = 2.f * sxs / p.W;
+    if constexpr (ORTHO) {
+      const OrthoSlopes o(camf);
+      Ax = rxc - rzc * o.kx;
+      Bx = uxc - uzc * o.kx;
+      Ay = ryc - rzc * o.ky;
+      By = uyc - uzc * o.ky;
+    }
   }
   // column shift of ray (j, i); *clamped counts a shift the +-Kc clamp cut
   __device__ __forceinline__ float du(int j, int i, const MarchParams& p,
                                       int* clamped) const {
     const float iv = (float)i * p.ratio, jv = (float)j * p.ratio;
     const float doy_j = (pyc - (sy0 + jv + 0.5f)) * dyk;
-    const float ox_i = ((sx0 + iv + 0.5f) * p.two_over_W - 1.f) * sxs;
-    const float oy_c = (1.f - pyc * p.two_over_H) * sys;
-    const float D_ic = fwd_z + ox_i * rzc + oy_c * uzc;
-    const float Nx_ic = fwd_x + ox_i * rxc + oy_c * uxc;
-    const float Fy_i = uxc * D_ic - Nx_ic * uzc;
-    const float Gx_i = rxc * D_ic - Nx_ic * rzc;
-    const float D_ip1 = D_ic + dox_step * rzc;
-    const float D_ij = D_ic + doy_j * uzc;
-    const float A_i = safe_div(Fy_i * D_ip1, dox_step * Gx_i);
-    float d = safe_div(doy_j * A_i, D_ij);
+    float d;
+    if constexpr (ORTHO) {
+      d = safe_div(doy_j * Bx, dox_step * Ax);
+    } else {
+      const float ox_i = ((sx0 + iv + 0.5f) * p.two_over_W - 1.f) * sxs;
+      const float oy_c = (1.f - pyc * p.two_over_H) * sys;
+      const float D_ic = fwd_z + ox_i * rzc + oy_c * uzc;
+      const float Nx_ic = fwd_x + ox_i * rxc + oy_c * uxc;
+      const float Fy_i = uxc * D_ic - Nx_ic * uzc;
+      const float Gx_i = rxc * D_ic - Nx_ic * rzc;
+      const float D_ip1 = D_ic + dox_step * rzc;
+      const float D_ij = D_ic + doy_j * uzc;
+      const float A_i = safe_div(Fy_i * D_ip1, dox_step * Gx_i);
+      d = safe_div(doy_j * A_i, D_ij);
+    }
     *clamped += (d < -p.Kc) | (d > p.Kc_hi);
     d = fminf(fmaxf(d, -p.Kc), p.Kc_hi);
     d = fmaxf(d, -(float)i);
@@ -165,16 +194,21 @@ struct Fan {
                                       int* clamped) const {
     const float iv = (float)i * p.ratio, jv = (float)j * p.ratio;
     const float dox_i = ((sx0 + iv + 0.5f) - pxc) * dxk;
-    const float oy_j = (1.f - (sy0 + jv + 0.5f) * p.two_over_H) * sys;
-    const float ox_c = (pxc * p.two_over_W - 1.f) * sxs;
-    const float D_cj = fwd_z + oy_j * uzc + ox_c * rzc;
-    const float Ny_cj = fwd_y + oy_j * uyc + ox_c * ryc;
-    const float Fx_j = ryc * D_cj - Ny_cj * rzc;
-    const float Gy_j = uyc * D_cj - Ny_cj * uzc;
-    const float D_jp1 = D_cj + doy_step * uzc;
-    const float D_ij2 = D_cj + dox_i * rzc;
-    const float B_j = safe_div(Fx_j * D_jp1, doy_step * Gy_j);
-    float d = safe_div(dox_i * B_j, D_ij2);
+    float d;
+    if constexpr (ORTHO) {
+      d = safe_div(dox_i * Ay, doy_step * By);
+    } else {
+      const float oy_j = (1.f - (sy0 + jv + 0.5f) * p.two_over_H) * sys;
+      const float ox_c = (pxc * p.two_over_W - 1.f) * sxs;
+      const float D_cj = fwd_z + oy_j * uzc + ox_c * rzc;
+      const float Ny_cj = fwd_y + oy_j * uyc + ox_c * ryc;
+      const float Fx_j = ryc * D_cj - Ny_cj * rzc;
+      const float Gy_j = uyc * D_cj - Ny_cj * uzc;
+      const float D_jp1 = D_cj + doy_step * uzc;
+      const float D_ij2 = D_cj + dox_i * rzc;
+      const float B_j = safe_div(Fx_j * D_jp1, doy_step * Gy_j);
+      d = safe_div(dox_i * B_j, D_ij2);
+    }
     *clamped += (d < -p.Kc) | (d > p.Kc_hi);
     d = fminf(fmaxf(d, -p.Kc), p.Kc_hi);
     d = fmaxf(d, -(float)j);
@@ -187,8 +221,9 @@ struct Fan {
 // i + du, then (row_fan) along the rows at j + dw, each pass through the
 // shared ``plane``.  Clamped shifts are added to *my_clamp when it is given
 // (once per particle, whatever the number of planes).
+template <bool ORTHO>
 __device__ __forceinline__ void fan_shift(float* vals, float* plane,
-                                          const Fan& fan,
+                                          const Fan<ORTHO>& fan,
                                           const MarchParams& p,
                                           int* my_clamp) {
   const int RM = p.RM, RR = RM * RM;
@@ -237,11 +272,16 @@ __device__ __forceinline__ void fan_shift(float* vals, float* plane,
 //             walked front to back, i.e. descending for particles with
 //             szn < 0; P2 = 1 - T, and both planes go through the fan.
 //
+// ORTHO: an orthographic camera (the reference's persp == False): parallel
+// rays along fwd from (rx + eye_z*kx, ry + eye_z*ky, eye_z), rx / ry the
+// z = 0 intercepts, dt_raw = ext / S / |fz_s|, and per step
+// gx = (zw*kx - lo_x)*kx2 + kx2*rx (the same for y); the fan is Fan<true>.
+//
 // Threads over the RM x RM march grid (ray r = (j, i), row j, column i);
 // ``plane`` is RM*RM floats of shared memory (the fan reads neighbouring
 // columns / rows); ``blk_clamp`` a shared counter the caller adds to the
 // global clamp count after a __syncthreads().
-template <typename T, int MODE, typename Sink>
+template <typename T, int MODE, bool ORTHO, typename Sink>
 __device__ __forceinline__ void march_fan_exp(
     const T* __restrict__ bank, const T* __restrict__ lbank,
     const int* __restrict__ vidx, const float* __restrict__ pgeom,
@@ -261,6 +301,7 @@ __device__ __forceinline__ void march_fan_exp(
       MODE != kUnlit ? lbank + (size_t)vidx[n] * p.S * slab_elems : nullptr;
   const float kx2 = p.gscx / ext, ky2 = p.gsc / ext;
   const float bx_h = (eye_x - lo_x) * kx2, by_h = (eye_y - lo_y) * ky2;
+  const OrthoSlopes os(camf);   // used by ORTHO only
   const float hi_x = lo_x + ext, hi_y = lo_y + ext, hi_z = lo_z + ext;
   const float se = scale * ext;
   const bool flip = MODE == kPerStep && szn < 0.f;
@@ -274,29 +315,43 @@ __device__ __forceinline__ void march_fan_exp(
   for (int r = threadIdx.x; r < RR; r += blockDim.x, ++c) {
     const int j = r / RM, i = r - (r / RM) * RM;
     const float rx = rxu[(size_t)n * RM + i], ry = ryw[(size_t)n * RM + j];
-    // ray/AABB: geo = scale * min(dt_raw, seg)  (perspective)
-    const float rnorm = sqrtf(rx * rx + ry * ry + 1.f);
-    const float inv_n = 1.f / rnorm;
-    const float d_x = rx * inv_n * szn, d_y = ry * inv_n * szn;
-    const float d_z = inv_n * szn;
-    const float dt_raw = (ext / p.Sf) * rnorm;
-    float t0x, t1x, t0y, t1y, t0z, t1z;
-    axis_seg(eye_x, d_x, lo_x, hi_x, &t0x, &t1x);
-    axis_seg(eye_y, d_y, lo_y, hi_y, &t0y, &t1y);
-    axis_seg(eye_z, d_z, lo_z, hi_z, &t0z, &t1z);
+    // ray/AABB: geo = scale * min(dt_raw, seg)
+    float dt_raw, t0x, t1x, t0y, t1y, t0z, t1z;
+    if constexpr (ORTHO) {
+      dt_raw = ext / p.Sf / fabsf(os.fz_s);
+      axis_seg(rx + eye_z * os.kx, camf[9], lo_x, hi_x, &t0x, &t1x);
+      axis_seg(ry + eye_z * os.ky, camf[10], lo_y, hi_y, &t0y, &t1y);
+      axis_seg(eye_z, camf[11], lo_z, hi_z, &t0z, &t1z);
+    } else {
+      const float rnorm = sqrtf(rx * rx + ry * ry + 1.f);
+      const float inv_n = 1.f / rnorm;
+      const float d_x = rx * inv_n * szn, d_y = ry * inv_n * szn;
+      const float d_z = inv_n * szn;
+      dt_raw = (ext / p.Sf) * rnorm;
+      axis_seg(eye_x, d_x, lo_x, hi_x, &t0x, &t1x);
+      axis_seg(eye_y, d_y, lo_y, hi_y, &t0y, &t1y);
+      axis_seg(eye_z, d_z, lo_z, hi_z, &t0z, &t1z);
+    }
     const float t0 = fmaxf(fmaxf(t0x, t0y), fmaxf(t0z, 0.f));
     const float t1 = fminf(fminf(t1x, t1y), t1z);
     const float seg = fmaxf(t1 - t0, 0.f);
     const float geo = scale * fminf(dt_raw, seg);
 
+    const float rxk = kx2 * rx, ryk = ky2 * ry;   // ORTHO's hoisted terms
     float od = 0.f, tau = 0.f, P1 = 0.f, Tr = 1.f;
     for (int si = 0; si < p.S; ++si) {
       const int s = flip ? p.S - 1 - si : si;
       const float zeta = ((float)s + 0.5f) / p.Sf;
       const float zw = lo_z + zeta * ext;
-      const float c1 = zw - eye_z;
-      const float gx = bx_h + (c1 * kx2) * rx;
-      const float gy = by_h + (c1 * ky2) * ry;
+      float gx, gy;
+      if constexpr (ORTHO) {
+        gx = (zw * os.kx - lo_x) * kx2 + rxk;
+        gy = (zw * os.ky - lo_y) * ky2 + ryk;
+      } else {
+        const float c1 = zw - eye_z;
+        gx = bx_h + (c1 * kx2) * rx;
+        gy = by_h + (c1 * ky2) * ry;
+      }
       const bool tpos = (zw - eye_z) * szn > 0.f;
       // a masked row / column has hat position -2: every weight is 0, the
       // sample is +0, and (per-step) alpha = 0 leaves (P1, T) as they are
@@ -335,7 +390,7 @@ __device__ __forceinline__ void march_fan_exp(
   }
 
   // ---- fan shift: q (telescoped) or both planes (per-step lit)
-  const Fan fan(g, camf, p);
+  const Fan<ORTHO> fan(g, camf, p);
   int my_clamp = 0;
   fan_shift(va, plane, fan, p, &my_clamp);
   if (MODE == kPerStep) fan_shift(vb, plane, fan, p, nullptr);

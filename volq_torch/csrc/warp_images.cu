@@ -1,7 +1,9 @@
 // warp_images: the unfused warp march, for Hopper (sm_90a).
 //
 // Replaces: volq/render/kernel.py:march_warp_pallas in unfused mode
-// (warp_fused=False, the pallas_call that writes per-particle image blocks)
+// (warp_fused=False, the pallas_call that writes per-particle image blocks),
+// under a perspective or an orthographic camera (march_fan_exp's ORTHO
+// instantiation)
 // -- per particle: the march, the fan shift and the exps at march resolution
 // (the same device code as the fused path's kernel A, march_fan_exp in
 // warp_common.cuh), then its epilogue: the RM -> RP hat upsample of the
@@ -41,7 +43,7 @@ struct SmemSink {
   }
 };
 
-template <typename T, int MODE>
+template <typename T, int MODE, bool ORTHO>
 __global__ void __launch_bounds__(kMarchThreads)
 warp_images_kernel(const T* __restrict__ bank, const T* __restrict__ lbank,
                    const int* __restrict__ vidx,
@@ -69,8 +71,8 @@ warp_images_kernel(const T* __restrict__ bank, const T* __restrict__ lbank,
       img[e] = cvt<T>(e >= 3 * PP ? 1.f : 0.f);
     return;
   }
-  march_fan_exp<T, MODE>(bank, lbank, vidx, pgeom, rxu, ryw, camf, p, n,
-                         plane, &blk_clamp, SmemSink{P1s, P2s});
+  march_fan_exp<T, MODE, ORTHO>(bank, lbank, vidx, pgeom, rxu, ryw, camf, p,
+                                n, plane, &blk_clamp, SmemSink{P1s, P2s});
   __syncthreads();
   if (threadIdx.x == 0 && blk_clamp) atomicAdd(clamp_out, blk_clamp);
 
@@ -131,21 +133,34 @@ static size_t images_smem(const MarchParams& p) {
           + (p.RM != p.RP ? (size_t)npl * p.RP * p.RM : 0)) * sizeof(float);
 }
 
-template <typename T, int MODE>
-static int launch_i(const void* bank, const void* lbank, const int* vidx,
+template <typename T, int MODE, bool ORTHO>
+static int launch_io(const void* bank, const void* lbank, const int* vidx,
                     const float* pgeom, const float* rxu, const float* ryw,
                     const float* camf, const float* alb, const float* lightf,
                     void* images, int* clamp_out, MarchParams p,
                     cudaStream_t st) {
   const size_t smem = images_smem(p);
   cudaError_t e = cudaFuncSetAttribute(
-      warp_images_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      warp_images_kernel<T, MODE, ORTHO>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  warp_images_kernel<T, MODE><<<p.N, kMarchThreads, smem, st>>>(
+  warp_images_kernel<T, MODE, ORTHO><<<p.N, kMarchThreads, smem, st>>>(
       (const T*)bank, (const T*)lbank, vidx, pgeom, rxu, ryw, camf, alb,
       lightf, (T*)images, clamp_out, p);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int MODE>
+static int launch_i(const void* bank, const void* lbank, const int* vidx,
+                    const float* pgeom, const float* rxu, const float* ryw,
+                    const float* camf, const float* alb, const float* lightf,
+                    void* images, int* clamp_out, MarchParams p,
+                    cudaStream_t st) {
+  if (p.ortho)
+    return launch_io<T, MODE, true>(bank, lbank, vidx, pgeom, rxu, ryw, camf,
+                                    alb, lightf, images, clamp_out, p, st);
+  return launch_io<T, MODE, false>(bank, lbank, vidx, pgeom, rxu, ryw, camf,
+                                   alb, lightf, images, clamp_out, p, st);
 }
 
 template <typename T>

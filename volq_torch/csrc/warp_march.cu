@@ -1,7 +1,10 @@
 // warp_march: the march half of the fused warp kernel, for Hopper (sm_90a).
 //
 // Replaces: volq/render/kernel.py:march_warp_pallas (fused mode, every
-// lighting mode, slab banks) -- the per-particle part of its grid step: the
+// lighting mode, slab banks, perspective or orthographic camera -- the
+// persp = False branches at :651-655, :680-687, :791-792, :986-988 and the
+// constant-ratio fan at :1250-1253, :1312-1315 are the ORTHO instantiation of
+// march_fan_exp) -- the per-particle part of its grid step: the
 // ray/AABB `scale*dt` (_init_one), the telescoped optical depth
 // od = sum_s (Wy_s . slab_s) . WxT_s, center-lit the one light sample at step
 // S/2 (_tau_mid), the fan shift at march resolution and the exps
@@ -57,7 +60,7 @@ template <bool LIT> struct PlaneSink {
   }
 };
 
-template <typename T, int MODE>
+template <typename T, int MODE, bool ORTHO>
 __global__ void __launch_bounds__(kMarchThreads)
 warp_march_kernel(const T* __restrict__ bank, const T* __restrict__ lbank,
                   const int* __restrict__ vidx,
@@ -76,30 +79,54 @@ warp_march_kernel(const T* __restrict__ bank, const T* __restrict__ lbank,
       out[r] = 0.f;
     return;
   }
-  march_fan_exp<T, MODE>(bank, lbank, vidx, pgeom, rxu, ryw, camf, p, n,
-                         plane, &blk_clamp, PlaneSink<LIT>{out, RR});
+  march_fan_exp<T, MODE, ORTHO>(bank, lbank, vidx, pgeom, rxu, ryw, camf, p,
+                                n, plane, &blk_clamp, PlaneSink<LIT>{out, RR});
   __syncthreads();
   if (threadIdx.x == 0 && blk_clamp) atomicAdd(clamp_out, blk_clamp);
 }
 
-template <typename T>
-static void launch_m(const void* bank, const void* lbank, const int* vidx,
+template <typename T, int MODE, bool ORTHO>
+static int launch_mo(const void* bank, const void* lbank, const int* vidx,
                      const float* pgeom, const float* rxu, const float* ryw,
                      const float* camf, float* pm, int* clamp_out,
                      MarchParams p, cudaStream_t st) {
+  // the fan's [RM, RM] plane: 64 KB at RM = 128, above the 48 KB default
   const size_t smem = (size_t)p.RM * p.RM * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      warp_march_kernel<T, MODE, ORTHO>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  warp_march_kernel<T, MODE, ORTHO><<<p.N, kMarchThreads, smem, st>>>(
+      (const T*)bank, MODE == kUnlit ? nullptr : (const T*)lbank, vidx, pgeom,
+      rxu, ryw, camf, pm, clamp_out, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int MODE>
+static int launch_mode(const void* bank, const void* lbank, const int* vidx,
+                       const float* pgeom, const float* rxu, const float* ryw,
+                       const float* camf, float* pm, int* clamp_out,
+                       MarchParams p, cudaStream_t st) {
+  if (p.ortho)
+    return launch_mo<T, MODE, true>(bank, lbank, vidx, pgeom, rxu, ryw, camf,
+                                    pm, clamp_out, p, st);
+  return launch_mo<T, MODE, false>(bank, lbank, vidx, pgeom, rxu, ryw, camf,
+                                   pm, clamp_out, p, st);
+}
+
+template <typename T>
+static int launch_m(const void* bank, const void* lbank, const int* vidx,
+                    const float* pgeom, const float* rxu, const float* ryw,
+                    const float* camf, float* pm, int* clamp_out,
+                    MarchParams p, cudaStream_t st) {
   if (p.lit == kPerStep)
-    warp_march_kernel<T, kPerStep><<<p.N, kMarchThreads, smem, st>>>(
-        (const T*)bank, (const T*)lbank, vidx, pgeom, rxu, ryw, camf, pm,
-        clamp_out, p);
-  else if (p.lit == kCenter)
-    warp_march_kernel<T, kCenter><<<p.N, kMarchThreads, smem, st>>>(
-        (const T*)bank, (const T*)lbank, vidx, pgeom, rxu, ryw, camf, pm,
-        clamp_out, p);
-  else
-    warp_march_kernel<T, kUnlit><<<p.N, kMarchThreads, smem, st>>>(
-        (const T*)bank, nullptr, vidx, pgeom, rxu, ryw, camf, pm, clamp_out,
-        p);
+    return launch_mode<T, kPerStep>(bank, lbank, vidx, pgeom, rxu, ryw, camf,
+                                    pm, clamp_out, p, st);
+  if (p.lit == kCenter)
+    return launch_mode<T, kCenter>(bank, lbank, vidx, pgeom, rxu, ryw, camf,
+                                   pm, clamp_out, p, st);
+  return launch_mode<T, kUnlit>(bank, lbank, vidx, pgeom, rxu, ryw, camf, pm,
+                                clamp_out, p, st);
 }
 
 extern "C" int warp_march_launch(const void* bank, const void* lbank,
@@ -114,10 +141,8 @@ extern "C" int warp_march_launch(const void* bank, const void* lbank,
   if (p.N == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (bank_bf16)
-    launch_m<__nv_bfloat16>(bank, lbank, vidx, pgeom, rxu, ryw, camf, pm,
-                            clamp_out, p, st);
-  else
-    launch_m<float>(bank, lbank, vidx, pgeom, rxu, ryw, camf, pm, clamp_out,
-                    p, st);
-  return (int)cudaGetLastError();
+    return launch_m<__nv_bfloat16>(bank, lbank, vidx, pgeom, rxu, ryw, camf,
+                                   pm, clamp_out, p, st);
+  return launch_m<float>(bank, lbank, vidx, pgeom, rxu, ryw, camf, pm,
+                         clamp_out, p, st);
 }

@@ -88,8 +88,10 @@ def cached_slab_banks(state: SceneState, light_volumes, cfg: SceneConfig):
     """Bake the warp engine's marching slab banks once for a static
     scene (they change only with the volumes): (density, light or None
     when ``light_volumes`` is None or the scene is unlit).  None for
-    animated volumes (the frame bakes them after its own re-bake) and
-    for the other engines."""
+    animated volumes (the frame bakes them after its own re-bake), for
+    the warp engine's XLA path (``warp_pallas=False``: it streams the
+    volumes, and so does its animated re-bake) and for the other
+    engines."""
     if cfg.volume.animated or cfg.render.engine != "warp":
         return None
     return bake_slab_banks(state.volumes, light_volumes, cfg)

@@ -1,5 +1,6 @@
 """The port's renderers.  ``render_frame`` dispatches on
-``cfg.render.engine``: "warp" (``warp.py``, through the CUDA kernels) and
+``cfg.render.engine``: "warp" (``warp.py``: through the CUDA kernels on
+the Pallas path, ``warp_xla.py``'s plain tensor code on the XLA path) and
 "exact" (``exact.py``, plain tensor code) are ported; "slab" raises
 (``warp.check_supported`` names its ROADMAP item)."""
 from volq_torch.render.binning import bin_particles, PairList

@@ -28,6 +28,11 @@ The unfused pair (``warp_fused=False``):
   ``composite_chunk_pallas`` -- OVER of one depth-ordered chunk of those
   images onto the legacy canvas.
 
+A and C take both projections: an orthographic camera
+(``MarchParams.ortho``) is a compile-time mode of their shared march, as
+the reference's ``persp = False`` branches are of ``march_warp_pallas``.
+B and D do not depend on the projection.
+
 Each wrapper launches its CUDA kernel for tensors on the card (raising
 if it cannot) and runs its plain PyTorch version, ``*_plain``, only for
 tensors on the CPU.  The plain versions repeat the kernels' arithmetic
@@ -47,6 +52,9 @@ import torch
 from volq_torch._build import (check_tensor as _check, ptr as _ptr,
                                stream as _stream)
 from volq_torch.scene.config import SceneConfig
+
+# how far _sign_eps keeps a ray's z component from 0 (the reference's)
+_EPS = 1e-6
 
 # per-particle geometry columns of warp_march's ``pgeom`` [N, PG_N]
 (PG_LOX, PG_LOY, PG_LOZ, PG_EXT, PG_SCALE, PG_SZN, PG_VALID, PG_SX0,
@@ -191,11 +199,14 @@ class MarchParams(ctypes.Structure):
     ``MarchParams`` in csrc/warp_common.cuh).  ``lit``: ``UNLIT``,
     ``CENTER`` (one light sample at step ``mid``) or ``PERSTEP`` (the
     OVER recurrence over density and light slabs at every step);
-    ``RP`` / ``ratio_m``: the rect kernel C upsamples to.  The float
+    ``RP`` / ``ratio_m``: the rect kernel C upsamples to; ``ortho``: an
+    orthographic camera (parallel rays along fwd, ``rx_u`` / ``ry_w``
+    the rays' z = 0 intercepts) instead of a perspective one.  The float
     fields are fp32 roundings of the reference's Python-double
     constants."""
     _fields_ = [(n, ctypes.c_int) for n in
-                ("N", "S", "VX", "V", "RM", "row_fan", "lit", "mid", "RP")] \
+                ("N", "S", "VX", "V", "RM", "row_fan", "lit", "mid", "RP",
+                 "ortho")] \
         + [(n, ctypes.c_float) for n in
            ("gsc", "gscx", "Sf", "ratio", "Kc", "Kc_hi", "rm_hi", "W", "H",
             "two_over_W", "two_over_H", "ratio_m")]
@@ -208,12 +219,12 @@ def _ratio_m(RM: int, RP: int) -> float:
 
 def march_params(N: int, S: int, VX: int, V: int, RM: int, RP: int,
                  K: int, row_fan: bool, W: int, H: int,
-                 lit: int = UNLIT) -> MarchParams:
+                 lit: int = UNLIT, ortho: bool = False) -> MarchParams:
     ratio = (RP - 1.0) / max(RM - 1, 1)
     Kc = K / ratio
     return MarchParams(
         N=N, S=S, VX=VX, V=V, RM=RM, row_fan=int(row_fan), lit=int(lit),
-        mid=S // 2, RP=RP,
+        mid=S // 2, RP=RP, ortho=int(bool(ortho)),
         gsc=_f32(V - 1), gscx=_f32(VX - 1), Sf=_f32(S), ratio=_f32(ratio),
         Kc=_f32(Kc), Kc_hi=_f32(Kc - 1e-3), rm_hi=_f32(RM - 1.0 - 1e-3),
         W=_f32(W), H=_f32(H), two_over_W=_f32(2.0 / W),
@@ -226,6 +237,12 @@ def _hat(g, k, n: int, wdt):
     w = torch.clamp(1.0 - torch.abs(g - k.to(torch.float32)), min=0.0)
     w = w.to(wdt).to(torch.float32)
     return torch.where((k >= 0) & (k < n), w, torch.zeros_like(w))
+
+
+def _sign_eps(v):
+    """v moved away from 0 to +-_EPS (the sign of v; +_EPS for 0)."""
+    eps = torch.where(v >= 0, _EPS, -_EPS)
+    return torch.where(torch.abs(v) < _EPS, eps, v)
 
 
 def _safe_div(num, den):
@@ -274,17 +291,29 @@ def _march_fan_exp_plain(bank, vidx, pgeom, rx_u, ry_w, camf,
     rx = rx_u[:, None, :]                               # [N, 1, RM] (i)
     ry = ry_w[:, :, None]                               # [N, RM, 1] (j)
 
-    # ray/AABB: geo = scale * min(dt_raw, seg)
-    rnorm = torch.sqrt(rx * rx + ry * ry + 1.0)
-    inv_n = torch.ones_like(rnorm) / rnorm
-    d_x = rx * inv_n * szn
-    d_y = ry * inv_n * szn
-    d_z = inv_n * szn
+    fwd_x, fwd_y, fwd_z = camf[9], camf[10], camf[11]
     Sf = torch.tensor(p.Sf, dtype=f32, device=dev)
-    dt_raw = (ext / Sf) * rnorm
-    t0x, t1x = _axis_seg(eye_x, d_x, lo_x, lo_x + ext)
-    t0y, t1y = _axis_seg(eye_y, d_y, lo_y, lo_y + ext)
-    t0z, t1z = _axis_seg(eye_z, d_z, lo_z, lo_z + ext)
+
+    # ray/AABB: geo = scale * min(dt_raw, seg).  Perspective: rays from
+    # the eye along (rx, ry, 1) * szn.  Orthographic: rays along fwd from
+    # (rx + eye_z*kx, ry + eye_z*ky, eye_z), kx = fwd_x / fwd_z
+    if p.ortho:
+        fz_s = _sign_eps(fwd_z)
+        kx, ky = fwd_x / fz_s, fwd_y / fz_s
+        o_x, o_y, o_z = rx + eye_z * kx, ry + eye_z * ky, eye_z
+        d_x, d_y, d_z = fwd_x, fwd_y, fwd_z
+        dt_raw = ext / Sf / torch.abs(fz_s)
+    else:
+        rnorm = torch.sqrt(rx * rx + ry * ry + 1.0)
+        inv_n = torch.ones_like(rnorm) / rnorm
+        o_x, o_y, o_z = eye_x, eye_y, eye_z
+        d_x = rx * inv_n * szn
+        d_y = ry * inv_n * szn
+        d_z = inv_n * szn
+        dt_raw = (ext / Sf) * rnorm
+    t0x, t1x = _axis_seg(o_x, d_x, lo_x, lo_x + ext)
+    t0y, t1y = _axis_seg(o_y, d_y, lo_y, lo_y + ext)
+    t0z, t1z = _axis_seg(o_z, d_z, lo_z, lo_z + ext)
     t0 = torch.maximum(torch.maximum(t0x, t0y), torch.clamp(t0z, min=0.0))
     t1 = torch.minimum(torch.minimum(t1x, t1y), t1z)
     seg = torch.clamp(t1 - t0, min=0.0)
@@ -296,8 +325,11 @@ def _march_fan_exp_plain(bank, vidx, pgeom, rx_u, ry_w, camf,
     # steps reversed for particles with szn < 0 (front to back).
     kx2 = torch.tensor(p.gscx, dtype=f32, device=dev) / ext
     ky2 = torch.tensor(p.gsc, dtype=f32, device=dev) / ext
-    bx_h = (eye_x - lo_x) * kx2
-    by_h = (eye_y - lo_y) * ky2
+    if p.ortho:
+        rxk, ryk = kx2 * rx, ky2 * ry
+    else:
+        bx_h = (eye_x - lo_x) * kx2
+        by_h = (eye_y - lo_y) * ky2
     stacks = bank[vidx.long()]                          # [N, S, VX, V]
     n_idx = torch.arange(N, device=dev).reshape(N, 1, 1)
     zero = torch.zeros((N, RM, RM), dtype=f32, device=dev)
@@ -316,9 +348,13 @@ def _march_fan_exp_plain(bank, vidx, pgeom, rx_u, ry_w, camf,
             zeta = float(np.float32(np.float32(si) + np.float32(0.5))
                          / np.float32(p.Sf))
         zw = lo_z + zeta * ext
-        c1 = zw - eye_z
-        gx = bx_h + (c1 * kx2) * rx                     # [N, 1, RM]
-        gy = by_h + (c1 * ky2) * ry                     # [N, RM, 1]
+        if p.ortho:
+            gx = (zw * kx - lo_x) * kx2 + rxk
+            gy = (zw * ky - lo_y) * ky2 + ryk
+        else:
+            c1 = zw - eye_z
+            gx = bx_h + (c1 * kx2) * rx                 # [N, 1, RM]
+            gy = by_h + (c1 * ky2) * ry                 # [N, RM, 1]
         tpos = (zw - eye_z) * szn > 0
         gyc = torch.where((gy >= 0) & (gy <= p.gsc) & tpos, gy, -2.0)
         gxc = torch.where((gx >= 0) & (gx <= p.gscx), gx, -2.0)
@@ -359,7 +395,6 @@ def _march_fan_exp_plain(bank, vidx, pgeom, rx_u, ry_w, camf,
     sx0, sy0, pxc, pyc = g1(PG_SX0), g1(PG_SY0), g1(PG_PXC), g1(PG_PYC)
     rxc, ryc, rzc = camf[3], camf[4], camf[5]
     uxc, uyc, uzc = camf[6], camf[7], camf[8]
-    fwd_x, fwd_y, fwd_z = camf[9], camf[10], camf[11]
     sxs, sys_ = camf[12], camf[13]
     W = torch.tensor(p.W, dtype=f32, device=dev)
     H = torch.tensor(p.H, dtype=f32, device=dev)
@@ -371,24 +406,32 @@ def _march_fan_exp_plain(bank, vidx, pgeom, rx_u, ry_w, camf,
     jj = torch.arange(RM, dtype=f32, device=dev).reshape(1, RM, 1)
     iv, jv = ii * p.ratio, jj * p.ratio
     doy_j = (pyc - (sy0 + jv + 0.5)) * dyk              # [N, RM(j), 1]
-    ox_i = ((sx0 + iv + 0.5) * p.two_over_W - 1.0) * sxs  # [N, 1, RM(i)]
-    oy_c = (1.0 - pyc * p.two_over_H) * sys_
-    D_ic = fwd_z + ox_i * rzc + oy_c * uzc
-    Nx_ic = fwd_x + ox_i * rxc + oy_c * uxc
-    Fy_i = uxc * D_ic - Nx_ic * uzc
-    Gx_i = rxc * D_ic - Nx_ic * rzc
-    D_ip1 = D_ic + dox_step * rzc
-    D_ij = D_ic + doy_j * uzc
-    A_i = _safe_div(Fy_i * D_ip1, dox_step * Gx_i)
-    du = _safe_div(doy_j * A_i, D_ij)
+    dox_i = ((sx0 + iv + 0.5) - pxc) * dxk              # [N, 1, RM(i)]
+    if p.ortho:
+        # rx is affine in the pixel: a constant ratio per row (column)
+        du = _safe_div(doy_j * (uxc - uzc * kx), dox_step * (rxc - rzc * kx))
+        du = du.expand(N, RM, RM)
+    else:
+        ox_i = ((sx0 + iv + 0.5) * p.two_over_W - 1.0) * sxs
+        oy_c = (1.0 - pyc * p.two_over_H) * sys_
+        D_ic = fwd_z + ox_i * rzc + oy_c * uzc
+        Nx_ic = fwd_x + ox_i * rxc + oy_c * uxc
+        Fy_i = uxc * D_ic - Nx_ic * uzc
+        Gx_i = rxc * D_ic - Nx_ic * rzc
+        D_ip1 = D_ic + dox_step * rzc
+        D_ij = D_ic + doy_j * uzc
+        A_i = _safe_div(Fy_i * D_ip1, dox_step * Gx_i)
+        du = _safe_div(doy_j * A_i, D_ij)
     clamped = ((du < -p.Kc) | (du > p.Kc_hi)) & valid
     du = torch.clamp(du, -p.Kc, p.Kc_hi)
     du = torch.maximum(du, -ii)
     du = torch.minimum(du, p.rm_hi - ii)
     n_clamp = clamped.sum()
     dw = None
-    if p.row_fan:
-        dox_i = ((sx0 + iv + 0.5) - pxc) * dxk          # [N, 1, RM(i)]
+    if p.row_fan and p.ortho:
+        dw = _safe_div(dox_i * (ryc - rzc * ky), doy_step * (uyc - uzc * ky))
+        dw = dw.expand(N, RM, RM)
+    elif p.row_fan:
         oy_j = (1.0 - (sy0 + jv + 0.5) * p.two_over_H) * sys_
         ox_c = (pxc * p.two_over_W - 1.0) * sxs
         D_cj = fwd_z + oy_j * uzc + ox_c * rzc          # [N, RM(j), 1]
@@ -399,6 +442,7 @@ def _march_fan_exp_plain(bank, vidx, pgeom, rx_u, ry_w, camf,
         D_ij2 = D_cj + dox_i * rzc
         B_j = _safe_div(Fx_j * D_jp1, doy_step * Gy_j)
         dw = _safe_div(dox_i * B_j, D_ij2)
+    if dw is not None:
         clamped_y = ((dw < -p.Kc) | (dw > p.Kc_hi)) & valid
         dw = torch.clamp(dw, -p.Kc, p.Kc_hi)
         dw = torch.maximum(dw, -jj)

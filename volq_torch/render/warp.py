@@ -16,26 +16,28 @@ depth (a stable sort of view-z, invalid last), then
 
 and finish the canvas over the background (``_canvas_finish``).
 
-The slice ported so far is every mode of the Pallas warp engine under a
-perspective camera: static or animated volumes, slab banks, unlit,
-center-lit (``light_mode="center"``: one sample of the baked light
-volume per ray at the particle's mid-depth step) or per-step lit
-(``light_mode="march"``), fused or unfused, on a pixel canvas or the
+Every mode of the warp engine is ported, under both projections: the
+Pallas path (``warp_pallas``) through kernels A-D, static or animated
+volumes, unlit, center-lit (``light_mode="center"``: one sample of the
+baked light volume per ray at the particle's mid-depth step) or per-step
+lit (``light_mode="march"``), fused or unfused, on a pixel canvas or the
 cell canvas of ``warp_coarse`` / ``warp_canvas_scale``, with or without
 ``warp_interleave``'s association, in one piece or in ``warp_bands``
-horizontal bands.  ``check_supported`` raises NotImplementedError for
-the rest (the slab engine, the XLA warp path, ortho cameras under the
-warp engine).  Flags that
-change neither the image nor this path are accepted: ``warp_pair`` and
-``warp_pack`` (TPU MXU-tile pairing and grid packing, bit-identical),
-``warp_canvas_vmem`` (where the TPU keeps its canvas: storage only),
-``warp_hazard_passes`` (a reorder of depth-adjacent particles with
-disjoint canvas windows: no pixel's order changes), ``warp_chunk``
-(XLA-path chunking), ``warp_swap_bf16`` (sharded wire).
-The port always marches from pre-lerped slab banks: where the reference
-would stream volumes instead (``use_slab_banks`` False) its in-kernel
-lerp is the same math, and only the x-resample (``slab_vx_eff``) depends
-on that choice.
+horizontal bands; and the XLA path (``warp_pallas=False``, the warp
+engine's default) in plain torch (``warp_xla.py``), which streams the
+volumes.  An orthographic camera is a compile-time mode of kernels A and
+C.  ``check_supported`` raises NotImplementedError for the slab engine
+only.  Flags that change neither the image nor this path are accepted:
+``warp_pair`` and ``warp_pack`` (TPU MXU-tile pairing and grid packing,
+bit-identical), ``warp_canvas_vmem`` (where the TPU keeps its canvas:
+storage only), ``warp_hazard_passes`` (a reorder of depth-adjacent
+particles with disjoint canvas windows: no pixel's order changes),
+``warp_swap_bf16`` (sharded wire).
+The Pallas path always marches from pre-lerped slab banks.  Where the
+reference streams the volumes instead (``use_slab_banks`` False:
+``steps >= V`` or a block above its VMEM budget) its in-kernel lerp is
+the same math with the same rounding points, so the image does not
+depend on that choice; only the x-resample (``slab_vx_eff``) does.
 """
 from __future__ import annotations
 
@@ -49,7 +51,6 @@ from volq_torch.render.common import _fade, _near_fade
 from volq_torch.render import kernel as K
 from volq_torch.scene.config import SceneConfig
 
-_EPS = 1e-6
 # bank entries per slab-bake chunk (bounds the fp32 lerp temporaries)
 _SLAB_CHUNK = 128
 
@@ -62,25 +63,15 @@ _MARCH_PERMS = {
 
 
 def check_supported(cfg: SceneConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for any mode
-    outside the ported slice (no flag is silently ignored; which flag
+    """Raise NotImplementedError, naming the ROADMAP item, for a mode
+    outside the port (no flag is silently ignored; which flag
     combinations are valid at all is ``scene/config.py``'s check).  The
-    exact engine (``render/exact.py``) takes both projections; the warp
-    engine is ported for its kernel path under a perspective camera."""
-    r = cfg.render
-    warp = r.engine == "warp"
-    unsupported = [
-        (r.engine == "slab", "the slab engine", "Queue 1 item 11"),
-        (warp and not r.warp_pallas,
-         "warp_pallas=False (the XLA warp path)", "Queue 1 item 5"),
-        (warp and cfg.camera.projection != "persp",
-         "an orthographic camera under the warp engine",
-         "Queue 1 items 4-5"),
-    ]
-    for bad, what, item in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"volq_torch does not port {what} yet (ROADMAP {item})")
+    exact and the warp engine are ported under both projections, the
+    warp engine on its Pallas path (kernels A-D) and its XLA path; the
+    slab engine is not."""
+    if cfg.render.engine == "slab":
+        raise NotImplementedError("volq_torch does not port the slab engine "
+                                  "yet (ROADMAP Queue 1 item 11)")
 
 
 def _static_camera(cfg: SceneConfig):
@@ -155,7 +146,8 @@ def _slab_x_consts(VX: int, V: int):
 
 def use_slab_banks(cfg: SceneConfig, V: int) -> bool:
     """The reference's choice of pre-lerped banks over streamed volumes
-    (a TPU VMEM rule); in the port it only gates ``warp_slab_vx``."""
+    (a TPU VMEM rule).  The port's Pallas path takes slab banks whatever
+    it says (the two are the same math); it gates ``warp_slab_vx``."""
     r = cfg.render
     if not r.warp_pallas or r.engine != "warp":
         return False
@@ -215,9 +207,13 @@ def bake_slab_banks(volumes, light_volumes, cfg: SceneConfig):
     engine coordinates for the march axis and bake their marching slabs
     (same x-extent, same working type).  Returns (density, light or
     None); the light bank is baked when ``light_volumes`` is given and
-    ``light_steps > 0``.  Cache it across frames for static scenes."""
+    ``light_steps > 0``.  Cache it across frames for static scenes.
+    None on the XLA path (``warp_pallas=False``), which streams the
+    volumes, as the reference's ``use_slab_banks`` rules."""
     check_supported(cfg)
     r = cfg.render
+    if not r.warp_pallas:
+        return None
     V = volumes.shape[-1]
     _, ap = _march_perm(cfg)
     lit = light_volumes is not None and r.light_steps > 0
@@ -271,29 +267,73 @@ def _dot3(a, v):
     return a[..., 0] * v[0] + a[..., 1] * v[1] + a[..., 2] * v[2]
 
 
-def ray_coords(camera: Camera, px, py, W, H):
-    """Perspective ray coordinates (dx/dz, dy/dz) of the pixel rays
-    through (px + .5, py + .5), fp32 elementwise."""
+def _fwd_slopes(camera: Camera):
+    """Orthographic ray slopes (kx, ky) = (fwd_x, fwd_y) / fwd_z, fwd_z
+    kept away from 0."""
+    fz = K._sign_eps(camera.fwd[2])
+    return camera.fwd[0] / fz, camera.fwd[1] / fz
+
+
+def ray_coords(camera: Camera, px, py, W, H, projection: str):
+    """Ray coordinates (rx, ry) of the pixel rays through (px + .5,
+    py + .5), fp32 elementwise: perspective, the slopes (dx/dz, dy/dz)
+    of the eye ray; orthographic, the ray's (x, y) intercept with the
+    z = 0 plane."""
     ndx = (px + 0.5) / scalar(W, px) * 2.0 - 1.0
     ndy = 1.0 - (py + 0.5) / scalar(H, py) * 2.0
     ox = ndx * camera.scale_x
     oy = ndy * camera.scale_y
-    dx = camera.fwd[0] + ox * camera.right[0] + oy * camera.up[0]
-    dy = camera.fwd[1] + ox * camera.right[1] + oy * camera.up[1]
-    dz = camera.fwd[2] + ox * camera.right[2] + oy * camera.up[2]
-    eps = torch.where(dz >= 0, _EPS, -_EPS)
-    dz = torch.where(torch.abs(dz) < _EPS, eps, dz)
-    return dx / dz, dy / dz
+    if projection == "persp":
+        dx = camera.fwd[0] + ox * camera.right[0] + oy * camera.up[0]
+        dy = camera.fwd[1] + ox * camera.right[1] + oy * camera.up[1]
+        dz = K._sign_eps(camera.fwd[2] + ox * camera.right[2]
+                       + oy * camera.up[2])
+        return dx / dz, dy / dz
+    # o = eye + ox*right + oy*up, d = fwd; intercept at z = 0
+    o_x = camera.eye[0] + ox * camera.right[0] + oy * camera.up[0]
+    o_y = camera.eye[1] + ox * camera.right[1] + oy * camera.up[1]
+    o_z = camera.eye[2] + ox * camera.right[2] + oy * camera.up[2]
+    kx, ky = _fwd_slopes(camera)
+    return o_x - o_z * kx, o_y - o_z * ky
+
+
+def _plane_pos_coeffs(camera: Camera, projection: str):
+    """pos_x(zw) = c0x(zw) + c1x(zw) * rx (the same for y): a function
+    zw -> (c0x, c1x, c0y, c1y)."""
+    if projection == "persp":
+        def coeffs(zw):
+            c1 = zw - camera.eye[2]
+            return (camera.eye[0].expand_as(zw), c1,
+                    camera.eye[1].expand_as(zw), c1)
+        return coeffs
+    kx, ky = _fwd_slopes(camera)
+
+    def coeffs(zw):
+        one = torch.ones_like(zw)
+        return zw * kx, one, zw * ky, one
+    return coeffs
+
+
+def _project(vx, vy, vz, camera: Camera, persp: bool, W: int, H: int):
+    """Screen position (px, py) of view-space points."""
+    if persp:
+        vz = torch.clamp(vz, min=1e-3)
+        return ((vx / (vz * camera.scale_x) + 1.0) * (0.5 * W),
+                (1.0 - vy / (vz * camera.scale_y)) * (0.5 * H))
+    return ((vx / camera.scale_x + 1.0) * (0.5 * W),
+            (1.0 - vy / camera.scale_y) * (0.5 * H))
 
 
 def _grid_geometry(particles: Particles, camera: Camera, cfg: SceneConfig,
                    y_start: int, h_local: int):
     """Per-particle validity, rect origin, grid ray coordinates and
-    screen-center projection (perspective).  Returns (dict of [N] /
+    screen-center projection (both projections).  Returns (dict of [N] /
     [N, RM] tensors, stats dict of 0-d int32 tensors)."""
     r = cfg.render
     RP = r.warp_rect
     W, H = r.width, r.height
+    proj = cfg.camera.projection
+    persp = proj == "persp"
     pos = particles.pos.to(torch.float32)
     half = particles.size.to(torch.float32)
 
@@ -301,13 +341,16 @@ def _grid_geometry(particles: Particles, camera: Camera, cfg: SceneConfig,
     vx = _dot3(rel, camera.right)
     vy = _dot3(rel, camera.up)
     vz = _dot3(rel, camera.fwd)
-    vz_safe = torch.clamp(vz, min=1e-3)
-    px_c = (vx / (vz_safe * camera.scale_x) + 1.0) * (0.5 * W)
-    py_c = (1.0 - vy / (vz_safe * camera.scale_y)) * (0.5 * H)
-    in_front = vz > 1e-3
-    dzp = pos[:, 2] - camera.eye[2]
-    szn = torch.where(dzp >= 0, 1.0, -1.0)
-    straddle = torch.abs(dzp) <= half * 1.05
+    px_c, py_c = _project(vx, vy, vz, camera, persp, W, H)
+    if persp:
+        in_front = vz > 1e-3
+        dzp = pos[:, 2] - camera.eye[2]
+        szn = torch.where(dzp >= 0, 1.0, -1.0)
+        straddle = torch.abs(dzp) <= half * 1.05
+    else:
+        in_front = torch.ones_like(vz, dtype=torch.bool)
+        szn = torch.where(camera.fwd[2] >= 0, 1.0, -1.0).expand_as(vz)
+        straddle = torch.zeros_like(vz, dtype=torch.bool)
 
     alive = particles.age < particles.lifetime
     sx0 = (torch.round(px_c) - RP // 2).to(torch.int32)
@@ -330,9 +373,9 @@ def _grid_geometry(particles: Particles, camera: Camera, cfg: SceneConfig,
     pxu = sx0[:, None].to(torch.float32) + uu[None, :]
     pyw = sy0[:, None].to(torch.float32) + uu[None, :]
     rx_u, _ = ray_coords(camera, pxu, (py_c[:, None] - 0.5).expand_as(pxu),
-                         W, H)
+                         W, H, proj)
     _, ry_w = ray_coords(camera, (px_c[:, None] - 0.5).expand_as(pyw), pyw,
-                         W, H)
+                         W, H, proj)
 
     # footprint overflow (conservative corner-projection rect)
     signs = torch.tensor([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
@@ -340,11 +383,8 @@ def _grid_geometry(particles: Particles, camera: Camera, cfg: SceneConfig,
                          device=pos.device)
     corners = pos[:, None, :] + half[:, None, None] * signs[None]
     crel = corners - camera.eye
-    cvx = _dot3(crel, camera.right)
-    cvy = _dot3(crel, camera.up)
-    cvz = torch.clamp(_dot3(crel, camera.fwd), min=1e-3)
-    cpx = (cvx / (cvz * camera.scale_x) + 1.0) * (0.5 * W)
-    cpy = (1.0 - cvy / (cvz * camera.scale_y)) * (0.5 * H)
+    cpx, cpy = _project(_dot3(crel, camera.right), _dot3(crel, camera.up),
+                        _dot3(crel, camera.fwd), camera, persp, W, H)
     foot_w = cpx.amax(1) - cpx.amin(1)
     foot_h = cpy.amax(1) - cpy.amin(1)
     i32 = torch.int32
@@ -487,7 +527,8 @@ def _march_inputs(po: Particles, go, camera: Camera, cfg: SceneConfig,
     mp = K.march_params(N, r.steps, bank.shape[2], bank.shape[-1],
                         march_rect(cfg), r.warp_rect, r.warp_shift_max,
                         needs_row_fan(cfg), r.width, r.height,
-                        lit=light_mode(cfg, lbank))
+                        lit=light_mode(cfg, lbank),
+                        ortho=cfg.camera.projection == "ortho")
     return (bank.contiguous(), po.vol_idx.to(torch.int32), pgeom,
             go["rx_u"].contiguous(), go["ry_w"].contiguous(), camf, mp,
             None if lbank is None else lbank.contiguous())
@@ -593,7 +634,9 @@ def render_warp_canvas(particles: Particles, volumes, camera: Camera,
     (``kernel.CanvasGeom``); with ``warp_fused=False`` the particles go
     through depth-sorted megachunks of at most ``warp_mega`` (march a
     chunk into images, composite it onto the carried canvas, next
-    chunk).
+    chunk); with ``warp_pallas=False`` the XLA path does the same in
+    plain torch (``warp_xla.render_warp_canvas_xla``, which takes no
+    slab banks).
 
     Stats: alive, rendered, straddled, rect_overflow, shift_clamped, all
     exact.  The reference's ``win_hazard``, ``pair_defer`` and
@@ -612,6 +655,10 @@ def render_warp_canvas(particles: Particles, volumes, camera: Camera,
         h_local = r.height
     if light_volumes is not None and r.light_steps <= 0:
         light_volumes = None       # no light march requested: unlit
+    if not r.warp_pallas:
+        from volq_torch.render.warp_xla import render_warp_canvas_xla
+        return render_warp_canvas_xla(particles, volumes, camera, light,
+                                      cfg, light_volumes, y_start, h_local)
     if slab_banks is None:
         slab_banks = bake_slab_banks(volumes, light_volumes, cfg)
     bank = slab_banks[0]

@@ -28,7 +28,9 @@ final result line):
      warp_pallas=true (A and B in their orthographic mode: one launch
      each), each against --device cpu within 1e-5 and (i) against (ii)
      within the reference's fp32 budget 1e-5, then both timed with
-     time_frames; preset c2 as shipped (512 x 512 warp) from zeroed
+     time_frames, and A and B timed alone at c1's shapes against their
+     plain versions and bounds (B's canvas must equal its plain
+     version's); preset c2 as shipped (512 x 512 warp) from zeroed
      counters, which must show launches of A and B and a plausible image;
   2c. preset c2 as shipped and with warp_pallas=false (the XLA path in
      plain torch): frames from zeroed counters (A 1, B 1 per frame / no
@@ -101,15 +103,27 @@ final result line):
      the loop: the one timed walk of B's plain version holds B on every
      particle of a c5 frame;
  12. print the kernels JSON line, nine entries (per warp kernel:
-     launches, error, ms, plain ms and bound on the c4 path, with the c2,
-     c3, ortho, c4 per-step and c5 paths' numbers under "c2", "c3",
-     "c3_ortho", "c4_ortho", "c4_perstep" and "c5"; "warp_march ortho"
-     and "warp_images ortho": A's and C's orthographic mode on the c3
-     and c4 ortho paths;
-     per probe kernel: launches of the probes' run, error, and ms, plain
-     ms, bound and -- probe_mma -- the time of one torch.matmul over the
-     same operands at one named point), the card line, and last the result
-     line {"ok": true, "device": {...}}.
+     launches, error, ms, plain ms and bound on the c4 path, with the c1
+     warp, c2, c3, ortho, c4 per-step and c5 paths' numbers under
+     "c1_warp", "c2", "c3", "c3_ortho", "c4_ortho", "c4_perstep" and
+     "c5"; for A and B also "device_ms", their time replayed from a
+     CUDA graph (without the Python wrappers' host time), A's arm, ring
+     depth and block size and the SM clock while its launches run
+     ("sm_mhz"), B's "fill_ms" (the first of its two kernels, the lists'
+     fill, alone), list slots and "sub_tile_visits" (the 4 x 32 warp
+     sub-tiles the valid boxes meet, summed), and on c3, c4, c4 per-step
+     and c5 A's
+     "sweep_ms": a ring of two and the widest blocks, each output equal
+     to the planned launch's (the [sweep] lines); the [timing] lines also
+     print the kernels' readings before their redesign (PREV_MS, a
+     prior run's, not this run's); "warp_march ortho" and
+     "warp_images ortho": A's and C's orthographic mode on the c3 and c4
+     ortho paths; per probe kernel: launches of the probes' run, error,
+     and ms, plain ms, bound and -- probe_mma -- the library's time for
+     the same products: one torch.matmul over a batch of LIB_BATCH of
+     them, scaled per product to the kernel's count, at one named point),
+     the card line, and last the result line {"ok": true, "device":
+     {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device
 it exits non-zero and prints no result.
@@ -144,6 +158,15 @@ FP32_BUDGET = 1e-4
 # (tests/test_warp.py:233)
 XLA_BUDGET = 1e-5
 NAMES = ("warp_march", "warp_composite", "warp_images", "composite_chunk")
+# A's and B's ms per launch on each fused path before their redesign to
+# step-major staging and per-tile lists (this script's last run of the
+# earlier kernels, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 5),
+# printed on the [timing] lines beside this run's, labelled as that run's
+PREV_MS = {"c2": (0.3898, 0.0607), "c3": (0.9825, 0.2158),
+           "c3 ortho": (0.9699, 0.2401), "c4": (2.1106, 0.7677),
+           "c4 per-step": (3.8847, 0.7662), "c5": (9.3218, 3.1880)}
+# products of one torch.matmul batch that times probe_mma's library call
+LIB_BATCH = 65536
 PROBES = ("probe_mma", "probe_stage", "probe_window")
 # probe_mma against its fp64 plain version, relative to max |out|
 MMA_TOL = 1e-4
@@ -395,17 +418,71 @@ def _march_work(args):
     return by, nv * mp.RM * mp.RM * per_ray, nv
 
 
+def _cells_met(box, valid, Hc: int, Wc: int) -> int:
+    """Canvas cells inside at least one valid particle's box (clipped to
+    the [Hc, Wc] canvas): a 2-D difference array of the boxes, summed."""
+    import torch
+    b = box[valid > 0].long()
+    y0, y1 = b[:, 0].clamp(0, Hc), b[:, 1].clamp(0, Hc)
+    x0, x1 = b[:, 2].clamp(0, Wc), b[:, 3].clamp(0, Wc)
+    ok = (y1 > y0) & (x1 > x0)
+    y0, y1, x0, x1 = y0[ok], y1[ok], x0[ok], x1[ok]
+    d = torch.zeros((Hc + 1) * (Wc + 1), dtype=torch.int64, device=b.device)
+    one = torch.ones_like(y0)
+    for yy, xx, sign in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1),
+                         (y1, x1, 1)):
+        d.index_add_(0, yy * (Wc + 1) + xx, sign * one)
+    cover = d.view(Hc + 1, Wc + 1).cumsum(0).cumsum(1)[:Hc, :Wc]
+    return int((cover > 0).sum())
+
+
+def _sub_tile_visits(box, valid, Hc: int, Wc: int) -> int:
+    """Warp sub-tiles (4 x 32 cells, B's unit of work) that the valid
+    particles' boxes meet, summed over the particles: the placements B's
+    warps run."""
+    b = box[valid > 0].long()
+    y0, y1 = b[:, 0].clamp(0, Hc), b[:, 1].clamp(0, Hc)
+    x0, x1 = b[:, 2].clamp(0, Wc), b[:, 3].clamp(0, Wc)
+    ok = (y1 > y0) & (x1 > x0)
+    ny = _floor_div(y1 - 1, 4) - _floor_div(y0, 4) + 1
+    nx = _floor_div(x1 - 1, 32) - _floor_div(x0, 32) + 1
+    return int((ny * nx)[ok].sum())
+
+
+def _floor_div(a, d):
+    import torch
+    return torch.div(a, d, rounding_mode="floor")
+
+
+def _sm_clock_during(fn, ms_each: float) -> int:
+    """The card's SM clock (MHz, as nvidia-smi reads it) while ~1.5 s of
+    ``fn``'s launches are queued on it."""
+    import torch
+    torch.cuda.synchronize()
+    for _ in range(max(20, int(1500 / max(ms_each, 1e-3)))):
+        fn()
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.split()[0]
+    torch.cuda.synchronize()
+    return int(mhz)
+
+
 def bounds(march, comp, canvas):
     """Least time the card needs for kernels A and B on these inputs:
-    max(bytes moved / HBM rate, flops / fp32 rate), in ms.  B's flops
-    count the canvas cells inside the valid particles' boxes (~30 per
-    cell and plane pair unlit, 52 lit, 44 / 76 with the interleaved
-    association's four folded channels)."""
+    max(bytes moved / HBM rate, flops / fp32 rate), in ms.  B's bytes
+    count the canvas cells some valid box meets (read and written: the
+    others are not the function's to touch), the valid particles' planes
+    and the per-particle scalars; its flops the canvas cells inside the
+    valid particles' boxes (~30 per cell and plane pair unlit, 52 lit,
+    44 / 76 with the interleaved association's four folded channels)."""
     mp, cp = march[6], comp[5]
     npl = 2 if mp.lit else 1
     a_in, a_flops, nv = _march_work(march)
     a_bytes = a_in + mp.N * npl * mp.RM * mp.RM * 4
-    b_bytes = (2 * canvas.numel() * canvas.element_size()
+    met = _cells_met(comp[2], comp[4], cp.Hc, cp.Wc)
+    b_bytes = (2 * met * canvas.shape[0] * canvas.element_size()
                + nv * npl * mp.RM * mp.RM * 4
                + mp.N * (4 + 4 + 16 + 12 * npl + 4))
     box, valid = comp[2].long(), comp[4] > 0
@@ -491,12 +568,51 @@ def same_image(tag, state, camera, light, cfg, ucfg, lv, sb):
         assert d <= budget, f"fused and unfused {tag} images differ by {d}"
 
 
-def time_fused(tag, state, camera, light, cfg, sb, card, errs):
+def sweep_plans(tag, march, Pm, card):
+    """A at launch plans beside the planned one, on the same inputs (each
+    output must equal the planned launch's): a ring of two stages, and
+    the widest blocks the march rect allows.  Returns {plan: ms}."""
+    import torch
+    from volq_torch.render import kernel as K
+    mp = march[6]
+    it = march[0].element_size()
+    plan = K.march_plan(mp, it)
+    wide = K.MARCH_BLOCK // mp.RM
+    out = {}
+    for G, D in ((plan.G, 2), (wide, plan.stages)):
+        alt = K.MarchPlan(G=G, stages=D, smem=K.march_smem(mp, D, it))
+        P2, _ = K.warp_march(*march, plan=alt)
+        assert torch.equal(P2, Pm), f"{tag}: warp_march {alt.arm} G={G}"
+        key = f"{mp.RM * G} threads, {alt.arm}"
+        out[key] = _cuda_ms(lambda: K.warp_march(*march, plan=alt), 10)
+    print(f"[sweep] {tag} warp_march: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items())
+          + f" (equal to the planned launch)  [{card}]")
+    return out
+
+
+def _graph_ms(fn, reps: int = 20) -> float:
+    """Device ms per call of ``fn`` replayed from a CUDA graph: the
+    kernels' own time, without the Python wrapper's."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: kernel A's launch sets its shared-memory attribute
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    t = _cuda_ms(graph.replay, reps)
+    del graph
+    return t
+
+
+def time_fused(tag, state, camera, light, cfg, sb, card, errs,
+               sweep=False):
     """ms of A, B and their plain versions at the state's inputs, and
     their bounds.  ``sb`` None (animated scenes): the state's banks are
     baked here, as the frame does.  B's plain version walks every particle
     of the frame once: that one walk is timed and its canvas must equal
-    the kernel's."""
+    the kernel's.  ``sweep``: also sweep_plans."""
     import torch
     from volq_torch.engine import loop
     from volq_torch.render import kernel as K
@@ -527,14 +643,48 @@ def time_fused(tag, state, camera, light, cfg, sb, card, errs):
     assert torch.equal(out_k, walked[0]), f"warp_composite {tag} differs"
     assert touched > 0.0, "warp_composite left the canvas blank"
     errs["warp_composite"] = max(errs["warp_composite"], d)
+    swept = sweep_plans(tag, march, Pm, card) if sweep else None
     del walked, out_k, blank
     bnd = bounds(march, comp, canvas)
+    mp, cp = march[6], comp[5]
+    plan = K.march_plan(mp, march[0].element_size())
+    bplan = K.composite_plan(cp)
+    # device times (replayed from CUDA graphs): B's fill kernel alone, and
+    # A and B as launched (the ms above also hold the wrappers' host time
+    # where that is the longer)
+    fill_ms = _graph_ms(lambda: K.tile_fill(comp[2], comp[4], cp))
+    mhz = _sm_clock_during(lambda: K.warp_march(*march), ms["warp_march"])
+    visits = _sub_tile_visits(comp[2], comp[4], cp.Hc, cp.Wc)
+    dev_ms = {"warp_march": _graph_ms(lambda: K.warp_march(*march)),
+              "warp_composite": _graph_ms(
+                  lambda: K.warp_composite(canvas, Pm, *comp))}
+    extra = {"warp_march": {"arm": plan.arm, "stages": plan.stages,
+                            "threads": mp.RM * plan.G, "sm_mhz": mhz},
+             "warp_composite": {"fill_ms": fill_ms, "list_slots": bplan.capt,
+                                "sub_tile_visits": visits}}
+    if swept:
+        extra["warp_march"]["sweep_ms"] = swept
+    prev = dict(zip(("warp_march", "warp_composite"),
+                    PREV_MS.get(tag, (None, None))))
+    notes = {"warp_march": f"arm {plan.arm} (ring depth {plan.stages}), "
+                           f"{mp.RM * plan.G} threads a block, SM clock "
+                           f"under A's launches {mhz} MHz",
+             "warp_composite": f"{bplan.ntx} x {bplan.nty} tiles, "
+                               f"{bplan.capt} list slots a tile, "
+                               f"{visits} warp sub-tile placements, the "
+                               f"lists' fill alone {fill_ms:.4f} ms"}
     for name in ms:
-        print(f"[timing] {tag} {name}: kernel {ms[name]:.4f} ms, plain "
-              f"{plain[name]:.3f} ms, bound {bnd[name][0]:.4f} ms "
-              f"({bnd[name][1]})  [{card}]")
-    return {name: {"ms": ms[name], "plain_ms": plain[name],
-                   "bound_ms": bnd[name][0], "bound_by": bnd[name][1]}
+        was = ("" if prev[name] is None
+               else f", before the redesign {prev[name]:.4f} ms (a "
+                    f"prior run's reading, not this run's)")
+        print(f"[timing] {tag} {name}: kernel {ms[name]:.4f} ms{was} "
+              f"(device {dev_ms[name]:.4f} ms), plain {plain[name]:.3f} "
+              f"ms, bound {bnd[name][0]:.4f} ms ({bnd[name][1]}); "
+              f"{notes[name]}  [{card}]")
+    return {name: {"ms": ms[name],
+                   "device_ms": dev_ms[name], "plain_ms": plain[name],
+                   "bound_ms": bnd[name][0], "bound_by": bnd[name][1],
+                   **extra[name]}
             for name in ms}
 
 
@@ -686,9 +836,17 @@ def time_probes(card):
             lambda: probe.mma_probe_plain(A, B, G, blocks)),
         "bound_ms": max(t_b, t_f) * 1e3,
         "bound_by": "bytes" if t_b >= t_f else "operations",
-        "library_ms": probe.median_ms(lambda: torch.matmul(A, B)),
         "point": f"c3_dot1 {M} x {K} x {N} bf16, R {R}, G {G}, nacc 8, "
-                 f"{blocks} blocks", "dots": dots, "library_dots": R}
+                 f"{blocks} blocks", "dots": dots}
+    # the library's time for the same work: one torch.matmul over a batch
+    # of LIB_BATCH of the same products (the R operands repeated), scaled
+    # per product to the kernel's ``dots``
+    Ab = A.repeat(LIB_BATCH // R, 1, 1)
+    lib_batch_ms = probe.median_ms(lambda: torch.matmul(Ab, B))
+    del Ab
+    out["probe_mma"].update(
+        library_ms=lib_batch_ms * dots / (LIB_BATCH // R * R),
+        library_batch=LIB_BATCH // R * R, library_batch_ms=lib_batch_ms)
     # probe_stage: K 4, G 2048.  Bytes the function must move: the blocks
     # n % M < min(G, M) of the K stacks read once (later steps fetch them
     # again, from L2), the output written once; operations: one fp32 add
@@ -732,7 +890,8 @@ def time_probes(card):
 def drive_cli(card):
     """python -m volq_torch.cli, in process, on the card: c1 with
     checkpoint and resume, c1 against the CPU, c2 through kernels A and
-    B."""
+    B.  Returns the launch counts of c1's frame under engine=warp on its
+    Pallas path."""
     import numpy as np
     from volq_torch.cli import main as cli
     with tempfile.TemporaryDirectory() as tmp:
@@ -796,6 +955,7 @@ def drive_cli(card):
             assert d <= 1e-5, f"c1 warp {tag}: card vs CPU {d}"
             for name in NAMES:
                 assert counts[name] == want.get(name, 0), (tag, counts)
+            c1_counts = counts
         d = float(np.abs(imgs["xla"] - imgs["pallas"]).max())
         print(f"[main] cli c1 engine=warp: XLA path vs Pallas path (A, B "
               f"ortho) max diff {d:.3e} (budget {XLA_BUDGET:.0e}, fp32)")
@@ -815,21 +975,27 @@ def drive_cli(card):
         assert counts["warp_march"] == 2 and counts["warp_composite"] == 2
         assert img.shape == (512, 512, 4) and np.isfinite(img).all()
         assert 0.05 < img[..., 3].max() <= 1.0 + 1e-6 and cover > 0.05
-    return counts
+    return c1_counts
 
 
-def time_c1_warp(card):
+def time_c1_warp(card, errs):
     """ms/frame of preset c1 under engine=warp on its XLA path and on its
-    Pallas path (A and B ortho), each on its own state."""
+    Pallas path (A and B ortho), each on its own state; A and B timed
+    alone at c1's shapes (ortho, march rect 128).  Returns A/B times."""
     from volq_torch.engine import loop
     from volq_torch.scene.config import c1
     warp = _with(c1(), engine="warp")
+    times = None
     for tag, cfg in (("c1 warp xla", warp),
                      ("c1 warp pallas", _with(warp, warp_pallas=True))):
         state, camera, light = loop.setup(cfg)
         sb = loop.cached_slab_banks(state, None, cfg)
         time_loop(tag, (state, camera, light, None, sb), cfg, card,
                   n_frames=8)
+        if sb is not None:
+            times = time_fused("c1 warp", state, camera, light, cfg, sb,
+                               card, errs)
+    return times
 
 
 def run_c2(card, errs):
@@ -919,8 +1085,8 @@ def main() -> int:
     check_probes(errs)
     probe_counts, _ = run_probes(card)
     probe_times = time_probes(card)
-    drive_cli(card)
-    time_c1_warp(card)
+    c1_counts = drive_cli(card)
+    c1_times = time_c1_warp(card, errs)
     c2_times, c2_counts = run_c2(card, errs)
 
     # ---- c3: the unlit fused path
@@ -942,7 +1108,8 @@ def main() -> int:
     unfused = {"warp_images": 2, "composite_chunk": 2}
     state, _, c3_counts = drive("c3", state, camera, light, cfg, None, sb,
                                 N_FRAMES, fused)
-    c3_times = time_fused("c3", state, camera, light, cfg, sb, card, errs)
+    c3_times = time_fused("c3", state, camera, light, cfg, sb, card, errs,
+                          sweep=True)
     time_loop("c3", (state, camera, light, None, sb), cfg, card)
     bench_cli((state, camera, light, None, sb), card)
 
@@ -988,7 +1155,8 @@ def main() -> int:
     st_u, _, u_counts = drive("c4 unfused", state, camera, light, ucfg, lv,
                               sb, N_FRAMES_UNFUSED, unfused)
     same_image("c4", st_u, camera, light, cfg, ucfg, lv, sb)
-    c4_times = time_fused("c4", st_f, camera, light, cfg, sb, card, errs)
+    c4_times = time_fused("c4", st_f, camera, light, cfg, sb, card, errs,
+                          sweep=True)
     c4_times.update(time_unfused("c4", st_f, camera, light, ucfg, sb, card))
     for tag, st, c in (("c4 fused", st_f, cfg), ("c4 unfused", st_u, ucfg)):
         time_loop(tag, (st, camera, light, lv, sb), c, card)
@@ -1025,7 +1193,7 @@ def main() -> int:
                     warp_composite=p_counts["warp_composite"])
     same_image("c4 per-step", sp_u, camera, light, pcfg, pucfg, lv, psb)
     p_times = time_fused("c4 per-step", sp_f, camera, light, pcfg, psb, card,
-                         errs)
+                         errs, sweep=True)
     p_times.update(time_unfused("c4 per-step", sp_f, camera, light, pucfg,
                                 psb, card))
     for tag, st, c in (("c4 per-step fused", sp_f, pcfg),
@@ -1078,7 +1246,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     state, _, c5_counts = drive("c5", state, camera, light, cfg, None, None,
                                 N_FRAMES_C5, fused)
-    c5_times = time_fused("c5", state, camera, light, cfg, None, card, errs)
+    c5_times = time_fused("c5", state, camera, light, cfg, None, card, errs,
+                          sweep=True)
     time_loop("c5", (state, camera, light, None, None), cfg, card,
               fb=N_FRAMES_C5, n_frames=N_FRAMES_C5, warmup=0)
 
@@ -1099,7 +1268,8 @@ def main() -> int:
              "max_abs_err": errs[name], **c4_times[name],
              "library_ms": None, "path": "c4"}
         # the other paths through the same kernel
-        for path, counts, times in (("c2", c2_counts, c2_times),
+        for path, counts, times in (("c1_warp", c1_counts, c1_times),
+                                    ("c2", c2_counts, c2_times),
                                     ("c3", c3_counts, c3_times),
                                     ("c3_ortho", c3o_counts, c3o_times),
                                     ("c4_ortho", c4o_counts, c4o_times),

@@ -12,7 +12,13 @@ unlit, center-lit, per-step lit (also with every particle behind the
 eye plane, steps reversed); pixel, coarse and scaled canvases, with and
 without the interleaved association; the orthographic mode of A and C
 (also at a march rect of 128, the largest A and C take); and the warp
-engine's XLA path (plain torch) on the card against the CPU.
+engine's XLA path (plain torch) on the card against the CPU.  A's arms
+(staged with the planned ring and a ring of two, global; the narrowest
+and widest blocks; the global arm where no ring fits; RM 128 in both
+projections) and B's edges (a tile every particle covers, with a list
+longer than a block holds in shared memory and one longer than a bitmap
+window of its list order; no list slots) are held at max abs err 0 (A)
+and torch.equal (B); B's fill kernel against tile_lists_plain.
 """
 import dataclasses
 
@@ -453,3 +459,202 @@ def test_xla_path_on_the_card_matches_cpu(proj):
     assert [fn.launches for fn in fns] == n0
     assert float(imgs[0][..., 3].max()) > 0.05
     assert float((imgs[0] - imgs[1]).abs().max()) <= 1e-5
+
+
+# --------------------------------------------------------------------------
+# the staged march (kernel A) and the per-tile lists (kernel B): their arms
+# and edges, each held at max abs err 0 (A) and torch.equal (B)
+
+def _march_equal(march, plan=None):
+    Pm, clamp = K.warp_march(*march, plan=plan)
+    ref, ref_clamp = K.warp_march_plain(*march)
+    assert float((Pm - ref).abs().max()) == 0.0
+    assert torch.equal(clamp, ref_clamp)
+    assert float(Pm.max()) > 0.0
+    return Pm
+
+
+MODES = {"unlit": {}, "center": LIT, "perstep": PERSTEP}
+
+
+@pytest.mark.parametrize("fp32", [False, True], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("proj", ["persp", "ortho"])
+@pytest.mark.parametrize("light", sorted(MODES))
+def test_march_arms_match_plain(light, proj, fp32):
+    """A's staged arm (the plan's ring and a ring of two) and its global
+    arm (taps from device memory), every lighting mode, both projections,
+    from the front and (per-step lit: steps reversed) from behind, with
+    the planned blocks (24 particles, fewer than the SMs), the narrowest
+    and the widest."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    for view in ("yawed", "behind"):
+        cfg = _scene(EYES[view], fp32, **MODES[light])
+        if proj == "ortho":
+            cfg = _ortho(cfg)
+        state, camera, light_ = loop.setup(cfg, device="cuda")
+        lv = loop.cached_light_volumes(state, light_, cfg)
+        bank, lbank = loop.cached_slab_banks(state, lv, cfg)
+        march, _, _ = fused_inputs(state.particles, camera, light_, cfg,
+                                   bank, 0, cfg.render.height, lbank)
+        mp = march[6]
+        plan = K.march_plan(mp, bank.element_size())
+        assert plan.stages >= 2
+        _march_equal(march)
+        for stages in (2, 0):
+            alt = K.MarchPlan(G=plan.G, stages=stages,
+                              smem=K.march_smem(mp, stages,
+                                                bank.element_size()))
+            _march_equal(march, alt)
+        # the narrowest and the widest blocks the rect allows
+        for G in (-(-mp.RM // K.MARCH_CAP), K.MARCH_BLOCK // mp.RM):
+            _march_equal(march, K.MarchPlan(G=G, stages=plan.stages,
+                                            smem=plan.smem))
+        with pytest.raises(RuntimeError):   # a plan the kernel refuses
+            K.warp_march(*march, plan=K.MarchPlan(
+                G=plan.G, stages=plan.stages, smem=plan.smem + 16))
+
+
+@pytest.mark.parametrize("proj", ["persp", "ortho"])
+def test_march_at_rect_128_both_projections(proj):
+    """RM = 128 (c1's under the warp engine): 896- and 1024-thread blocks,
+    a 64 KB plane, both arms."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    cfg = _scene(EYES["pitched"], True)
+    if proj == "ortho":
+        cfg = _ortho(cfg, half_h=1.0)
+    cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, warp_rect=128, warp_march_rect=0, warp_slab_vx=0,
+        steps=32))
+    state, camera, light = loop.setup(cfg, device="cuda")
+    bank = loop.cached_slab_banks(state, None, cfg)[0]
+    march, _, _ = fused_inputs(state.particles, camera, light, cfg, bank, 0,
+                               cfg.render.height)
+    mp = march[6]
+    assert mp.RM == 128 and mp.ortho == (proj == "ortho")
+    plan = K.march_plan(mp, 4)
+    _march_equal(march)
+    # the narrowest (20 rays a thread, 896 threads) and widest blocks, and
+    # the global arm
+    for G in (7, 8):
+        _march_equal(march, K.MarchPlan(G=G, stages=plan.stages,
+                                        smem=plan.smem))
+    _march_equal(march, K.MarchPlan(G=8, stages=0,
+                                    smem=K.march_smem(mp, 0, 4)))
+
+
+def test_march_global_arm_where_no_ring_fits():
+    """Per-step lit in fp32 over full-x 128^3 slabs: a stage of two 64 KB
+    slabs leaves no ring of two in 227 KB, so the plan names the global
+    arm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    cfg = _scene(EYES["yawed"], True, **PERSTEP)
+    cfg = dataclasses.replace(
+        cfg, n_particles=6, volume=dataclasses.replace(cfg.volume, size=128,
+                                                       bank_size=2),
+        render=dataclasses.replace(cfg.render, warp_slab_vx=0, steps=6))
+    state, camera, light = loop.setup(cfg, device="cuda")
+    lv = loop.cached_light_volumes(state, light, cfg)
+    bank, lbank = loop.cached_slab_banks(state, lv, cfg)
+    march, _, _ = fused_inputs(state.particles, camera, light, cfg, bank, 0,
+                               cfg.render.height, lbank)
+    assert K.march_plan(march[6], 4).arm == "global"
+    _march_equal(march)
+
+
+def _synthetic_composite(N, seed, lit=True, RM=32, RP=48, Hc=96, Wc=320,
+                         one_tile=False, scale=1.0):
+    """Kernel B's inputs made up with numpy: random planes (times
+    ``scale``), integer origins on a pixel canvas, boxes the RP x RP rects
+    (``one_tile``: every rect covers canvas tile (1, 1))."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    dev = "cuda"
+    npl = 2 if lit else 1
+    Pm = torch.from_numpy(rng.random((N, npl, RM, RM), np.float32) * scale)
+    Pm = (Pm.reshape(N, RM, RM) if not lit else Pm).to(dev)
+    if one_tile:
+        ay = rng.integers(K.TILE_H + 1 - RP, K.TILE_H, N)
+        ax = rng.integers(K.TILE_W + 1 - RP, K.TILE_W, N)
+    else:
+        ay = rng.integers(-RP // 2, Hc - RP // 2, N)
+        ax = rng.integers(-RP // 2, Wc - RP // 2, N)
+    box = np.stack([np.maximum(ay, 0), np.minimum(ay + RP, Hc),
+                    np.maximum(ax, 0), np.minimum(ax + RP, Wc)], 1)
+    t = lambda a, dt=torch.float32: torch.from_numpy(   # noqa: E731
+        np.ascontiguousarray(a)).to(dt).to(dev)
+    cc = t(rng.random((N, 3)) * 0.9)
+    cc2 = t(rng.random((N, 3)) * 0.3) if lit else None
+    valid = t(rng.random(N) > 0.1, torch.int32)
+    cp = K.composite_params(N, RM, Hc, Wc, K._ratio_m(RM, RP), lit=lit)
+    canvas = torch.zeros((4, Hc, Wc), dtype=torch.float32, device=dev)
+    canvas[3] = 1
+    return canvas, (Pm, t(ay), t(ax), t(box, torch.int32), cc, valid, cp,
+                    torch.bfloat16, cc2)
+
+
+@pytest.mark.parametrize("lit", [True, False], ids=["lit", "unlit"])
+def test_composite_one_tile_every_particle_covers(lit):
+    """1500 particles whose rects all cover tile (1, 1): one list 1500
+    long (longer than the kChunk a block holds in shared memory); then
+    with no list slots (every warp tests the whole list)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    canvas, args = _synthetic_composite(1500, 5, lit=lit, one_tile=True)
+    ref = K.warp_composite_plain(canvas.clone(), *args)
+    assert torch.equal(K.warp_composite(canvas.clone(), *args), ref)
+    cp = args[6]
+    plan = K.composite_plan(cp)
+    counts, _ = K.tile_fill(args[3], args[5], cp)
+    assert int(counts[1 * plan.ntx + 1]) == int(args[5].sum()) > 1024
+    none = K.CompositePlan(ntx=plan.ntx, nty=plan.nty, capt=0)
+    assert torch.equal(K.warp_composite(canvas.clone(), *args, plan=none),
+                       ref)
+
+
+def test_composite_list_past_one_bitmap_window():
+    """70000 particles, every one valid, all on tile (1, 1) of a 2 x 2
+    tile canvas: the list is longer than one bitmap window (65536
+    indices) of the block's list order.  Planes scaled down, so that the
+    tile's transmittance stays well above 0 to the last particle and a
+    particle out of order would change the canvas."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    N = 70000
+    canvas, args = _synthetic_composite(N, 9, lit=False, RM=8, RP=12,
+                                        Hc=32, Wc=128, one_tile=True,
+                                        scale=4e-5)
+    args = args[:5] + (torch.ones_like(args[5]),) + args[6:]
+    cp = args[6]
+    plan = K.composite_plan(cp)
+    assert plan.capt == N
+    counts, _ = K.tile_fill(args[3], args[5], cp)
+    assert int(counts[1 * plan.ntx + 1]) == N
+    ref = K.warp_composite_plain(canvas.clone(), *args)
+    assert float(ref[3, 16:, 64:].min()) > 0.05
+    assert torch.equal(K.warp_composite(canvas.clone(), *args), ref)
+
+
+def test_tile_fill_matches_plain():
+    """B's fill kernel against tile_lists_plain: scattered rects, and
+    70000 particles on one tile; each tile's slots, sorted, are its
+    plain list."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    for N, one in ((3000, False), (70000, True)):
+        _, args = _synthetic_composite(N, N, one_tile=one)
+        box, valid, cp = args[3], args[5], args[6]
+        if one:
+            valid = torch.ones_like(valid)
+        plan = K.composite_plan(cp)
+        counts, slots = K.tile_fill(box, valid, cp)
+        offs, lists = K.tile_lists_plain(box.cpu(), valid.cpu(), cp.Hc,
+                                         cp.Wc)
+        assert torch.equal(counts.cpu(), offs[1:] - offs[:-1])
+        assert int(counts.max()) <= plan.capt
+        counts, slots = counts.cpu(), slots.cpu()
+        for t in range(counts.numel()):
+            a, b = int(offs[t]), int(offs[t + 1])
+            assert torch.equal(slots[t, :b - a].sort().values, lists[a:b]), t

@@ -1,0 +1,65 @@
+"""The SASS reader of ``volq_torch.sass`` on a made-up disassembly in
+``cuobjdump -sass``'s format (both of its branch-target spellings), on the
+CPU: functions, labels, loops and their nesting, instruction classes."""
+import pytest
+
+from volq_torch import sass
+
+SAMPLE = """
+Fatbin elf code:
+================
+arch = sm_90a
+
+	code for sm_90a
+		Function : _Z3fooILi1EEvPf
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;            /* 0x00000a00ff017b82 */
+                                                                     /* 0x000fe40000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;
+.L_x_0:
+        /*0020*/                   LDS.U.128 R4, [R0] ;
+        /*0030*/                   F2FP.BF16.F32.PACK_AB R3, RZ, R2 ;
+        /*0040*/                   FMUL R3, R2, R2 ;
+.L_x_1:
+        /*0050*/                   IMAD.MOV.U32 R3, RZ, RZ, R2 ;
+        /*0060*/               @P1 BRA `(.L_x_1) ;
+        /*0070*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0080*/              @!P0 BRA 0x20 ;
+        /*0090*/                   EXIT ;
+.L_x_2:
+        /*00a0*/                   BRA `(.L_x_2);
+		Function : _Z3barv
+        /*0000*/                   MUFU.EX2 R1, R0 ;
+        /*0010*/                   EXIT ;
+"""
+
+
+def test_parse_reads_every_function_and_instruction():
+    funcs = sass.parse(SAMPLE)
+    assert list(funcs) == ["_Z3fooILi1EEvPf", "_Z3barv"]
+    foo = funcs["_Z3fooILi1EEvPf"]
+    assert len(foo) == 11 and len(funcs["_Z3barv"]) == 2
+    assert foo[2] == (0x20, "LDS.U.128", "R4, [R0]", ".L_x_0")
+    assert foo[4][1] == "FMUL" and foo[4][3] is None
+
+
+def test_loops_nest_and_skip_the_padding_branch():
+    s = sass.summary(sass.parse(SAMPLE)["_Z3fooILi1EEvPf"])
+    assert s["insns"] == 11
+    outer, inner = s["loops"]
+    assert (outer["start"], outer["end"], outer["insns"]) == (0x20, 0x80, 7)
+    assert (inner["start"], inner["end"], inner["insns"]) == (0x50, 0x60, 2)
+    assert (outer["depth"], inner["depth"]) == (0, 1)
+    assert outer["classes"] == {"barrier": 1, "branch": 2, "convert": 1,
+                                "fp32": 1, "lds": 1, "move": 1}
+    assert sass.summary(sass.parse(SAMPLE)["_Z3barv"])["loops"] == []
+
+
+@pytest.mark.parametrize("op,cls", [
+    ("LDS.U.128", "lds"), ("LDG.E.128.CONSTANT", "ldg"),
+    ("LDGSTS.E.BYPASS.128", "cp_async"), ("IMAD.MOV.U32", "move"),
+    ("IMAD.WIDE", "int"), ("F2FP.BF16.F32.PACK_AB", "convert"),
+    ("MUFU.EX2", "mufu"), ("FSETP.GE.AND", "compare"),
+    ("BAR.SYNC.DEFER_BLOCKING", "barrier"), ("HMMA.16816.F32", "other")])
+def test_classify_by_longest_prefix(op, cls):
+    assert sass.classify(op) == cls

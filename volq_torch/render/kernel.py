@@ -29,21 +29,29 @@ The unfused pair (``warp_fused=False``):
   images onto the legacy canvas.
 
 A and C take both projections: an orthographic camera
-(``MarchParams.ortho``) is a compile-time mode of their shared march, as
-the reference's ``persp = False`` branches are of ``march_warp_pallas``.
-B and D do not depend on the projection.
+(``MarchParams.ortho``) is a compile-time mode of their march, as the
+reference's ``persp = False`` branches are of ``march_warp_pallas``.
+B and D do not depend on the projection.  A marches step-major through
+a shared-memory ring of slab stages, in the arm ``march_plan`` picks
+from the shapes (``MarchPlan``); C keeps the ray-major march
+(``csrc/warp_common.cuh:march_fan_exp``).  B builds per-tile particle
+lists in its launch (``tile_fill``; plain version ``tile_lists_plain``),
+orders each tile's list in its block and walks it a warp per sub-tile,
+reading the listed particles' plane taps from device memory; its plan
+(``composite_plan``) sizes the tile grid and the list slots.
 
 Each wrapper launches its CUDA kernel for tensors on the card (raising
 if it cannot) and runs its plain PyTorch version, ``*_plain``, only for
 tensors on the CPU.  The plain versions repeat the kernels' arithmetic
 op for op (same rounding points, same fp32 operation order), so on the
 card kernels B and D are bit-equal to their plain versions and kernels
-A and C equal to fp32 rounding.  ``launches`` on each wrapper counts
+A and C equal to them (max abs err 0).  ``launches`` on each wrapper counts
 kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -479,6 +487,87 @@ def warp_march_plain(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams,
     return (torch.stack([P1m, P2m], dim=1) if p.lit else P2m), clamp
 
 
+# the shared memory a block may opt into on an H100 (227 KB), and its SMs
+SMEM_OPTIN = 232448
+SMEM_SM = 233472         # an SM's 228 KB
+N_SM = 132
+MARCH_CAP = 20           # rays a thread of kernel A at most
+MARCH_BLOCK = 1024
+MAX_STAGES = 4
+
+
+class MarchPlan(ctypes.Structure):
+    """How kernel A runs a launch (mirrors ``MarchPlan`` in
+    csrc/warp_march.cu): ``G`` column groups (a block of RM * G threads;
+    a thread marches row t % RM at columns t // RM + c * G, at most
+    ``MARCH_CAP``), ``stages`` of the shared-memory slab ring (0: the
+    global arm, taps read from device memory), ``smem`` dynamic shared
+    bytes."""
+    _fields_ = [(n, ctypes.c_int) for n in ("G", "stages", "smem")]
+
+    @property
+    def arm(self) -> str:
+        return f"staged x{self.stages}" if self.stages else "global"
+
+
+def march_smem(p: MarchParams, stages: int, itemsize: int) -> int:
+    """Dynamic shared bytes of kernel A: the column tables [2, RM] float4,
+    the plane [RM, RM | 1] and rx / ry [2, RM] fp32, plus (staged) the
+    ring of ``stages`` slab stages (per-step lit: density and light slab)
+    and center-lit's light slab."""
+    slab = p.VX * p.V * itemsize
+    b = 2 * p.RM * 16 + (p.RM * (p.RM | 1) + 2 * p.RM) * 4
+    if stages:
+        b += stages * slab * (2 if p.lit == PERSTEP else 1)
+        b += slab if p.lit == CENTER else 0
+    return b
+
+
+def march_plan(p: MarchParams, itemsize: int,
+               aligned: bool = True) -> MarchPlan:
+    """Kernel A's plan for these shapes: ``itemsize`` of the bank (2
+    bf16, 4 fp32), ``aligned`` whether the banks start on 16 bytes.
+    The fewest threads a block (the most rays a thread) that
+    ``MARCH_CAP`` allows -- more, smaller blocks an SM wait less on each
+    other's step barriers -- or, with fewer particles than SMs, halfway
+    to the most RM allows.  The staged arm with as many stages (2-4,
+    at most S) as leave the SM as many blocks as its registers allow
+    (else two stages, if they fit ``SMEM_OPTIN``), else the global arm
+    (also for a slab that is not a whole number of 16-byte copies)."""
+    # a copy: the cached plan stays as computed whatever a caller does
+    return MarchPlan.from_buffer_copy(
+        _march_plan(_key(p), itemsize, bool(aligned)))
+
+
+@functools.lru_cache(maxsize=64)
+def _march_plan(key: bytes, itemsize: int, aligned: bool) -> MarchPlan:
+    p = MarchParams.from_buffer_copy(key)
+    RM = p.RM
+    g_min, g_max = -(-RM // MARCH_CAP), MARCH_BLOCK // max(RM, 1)
+    if RM < 1 or RM > 128:
+        raise ValueError(f"march rect {RM} not supported (1 to 128)")
+    G = (g_min + g_max) // 2 if p.N < N_SM else g_min
+    stages = 0
+    if aligned and (p.VX * p.V * itemsize) % 16 == 0:
+        # the blocks an SM holds at the kernel's 64 registers a thread, and
+        # their share of its shared memory (1 KB a block reserved)
+        blocks = max(1, 65536 // (RM * G * 64))
+        room = min(SMEM_OPTIN, SMEM_SM // blocks - 1024)
+        fits = [D for D in range(2, min(MAX_STAGES, p.S) + 1)
+                if march_smem(p, D, itemsize) <= SMEM_OPTIN]
+        share = [D for D in fits if march_smem(p, D, itemsize) <= room]
+        stages = max(share or fits[:1] or [0])
+    smem = march_smem(p, stages, itemsize)
+    if smem > SMEM_OPTIN:
+        raise ValueError(f"march rect {RM} needs {smem} B of shared memory")
+    return MarchPlan(G=G, stages=stages, smem=smem)
+
+
+def _key(s: ctypes.Structure) -> bytes:
+    """A parameter struct's bytes, as a cache key."""
+    return bytes(s)
+
+
 def _check_march(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams,
                  lbank):
     dev = pgeom.device
@@ -499,8 +588,12 @@ def _check_march(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams,
     return dev
 
 
+_MARCH_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] \
+    + [ctypes.c_void_p] * 7 + [MarchParams, MarchPlan, ctypes.c_void_p]
+
+
 def warp_march(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams,
-               lbank=None):
+               lbank=None, plan: MarchPlan | None = None):
     """Kernel A: march + fan + exp of the depth-ordered particles.
     ``bank`` [M, S, VX, V] (bf16 or fp32 slab bank), ``vidx`` [N] int32,
     ``pgeom`` [N, PG_N] fp32, ``rx_u``/``ry_w`` [N, RM] fp32, ``camf``
@@ -509,6 +602,8 @@ def warp_march(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams,
     ``CENTER`` reads its slab ``p.mid`` only, ``PERSTEP`` every slab,
     walking the steps back to front for particles with szn < 0
     (``pgeom[:, PG_SZN]``) so one front-to-back recurrence serves all.
+    ``plan``: the launch's arm and sizes (default ``march_plan`` of these
+    shapes; a plan the kernel cannot take raises).
     Returns (P2m [N, RM, RM] -- lit: (P1m, P2m) [N, 2, RM, RM] -- fp32,
     clamp count [1] int32)."""
     dev = _check_march(bank, vidx, pgeom, rx_u, ry_w, camf, p, lbank)
@@ -517,16 +612,20 @@ def warp_march(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams,
                                 lbank)
     from volq_torch._build import load
     fn = load("warp_march").warp_march_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] \
-        + [ctypes.c_void_p] * 7 + [MarchParams, ctypes.c_void_p]
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = _MARCH_ARGS
+    if plan is None:
+        aligned = all(t.data_ptr() % 16 == 0 for t in (bank, lbank)
+                      if t is not None)
+        plan = march_plan(p, bank.element_size(), aligned)
     N, RM = p.N, p.RM
     Pm = torch.empty((N, 2, RM, RM) if p.lit else (N, RM, RM),
                      dtype=torch.float32, device=dev)
     clamp = torch.zeros((1,), dtype=torch.int32, device=dev)
     err = fn(_ptr(bank), _ptr(lbank), int(bank.dtype == torch.bfloat16),
              _ptr(vidx), _ptr(pgeom), _ptr(rx_u), _ptr(ry_w), _ptr(camf),
-             _ptr(Pm), _ptr(clamp), p, _stream(dev))
+             _ptr(Pm), _ptr(clamp), p, plan, _stream(dev))
     if err:
         raise RuntimeError(f"warp_march launch failed: CUDA error {err}")
     warp_march.launches += 1
@@ -554,6 +653,141 @@ def composite_params(N: int, RM: int, Hc: int, Wc: int, gscale: float,
                      lit: bool = False, ilv: bool = False) -> CompositeParams:
     return CompositeParams(N=N, RM=RM, Hc=Hc, Wc=Wc, lit=int(bool(lit)),
                            ilv=int(ilv), gscale=_f32(gscale))
+
+
+TILE_H, TILE_W = 16, 64     # kernel B's canvas tile (csrc/warp_composite.cu)
+
+
+class CompositePlan(ctypes.Structure):
+    """How kernel B runs a launch (mirrors ``CompositePlan`` in
+    csrc/warp_composite.cu): the ``ntx`` x ``nty`` grid of TILE_H x TILE_W
+    tiles and ``capt`` list slots a tile."""
+    _fields_ = [(n, ctypes.c_int) for n in ("ntx", "nty", "capt")]
+
+
+@functools.lru_cache(maxsize=64)
+def _composite_plan(key: bytes) -> CompositePlan:
+    p = CompositeParams.from_buffer_copy(key)
+    ntx, nty = -(-p.Wc // TILE_W), -(-p.Hc // TILE_H)
+    nt = ntx * nty
+    g = float(p.gscale)
+    per = nt
+    if g > 0:
+        ext = int(np.ceil((p.RM - 1) / g)) + 4 + 2 * int(np.ceil(1 / g))
+        per = min(per, (-(-(ext - 1) // TILE_H) + 1)
+                  * (-(-(ext - 1) // TILE_W) + 1))
+    capt = min(p.N, max(256, -(-8 * p.N * per // nt)))
+    if 2 * nt * capt >= 2 ** 31:
+        raise ValueError(f"{p.N} particles on {nt} tiles need too many "
+                         "list slots")
+    return CompositePlan(ntx=ntx, nty=nty, capt=capt)
+
+
+def composite_plan(p: CompositeParams) -> CompositePlan:
+    """Kernel B's plan for these shapes.  List slots: a tile has 8x the
+    list it would have on average if every box met as many tiles as the
+    largest box can (its placed extent ceil((RM-1)/gscale) + 1, the
+    tent's leak ceil(1/gscale) past each end, the cell canvas's support
+    cell and one of slack), at least 256 and at most N; where a list does
+    not fit, the tile's warps test every particle."""
+    # a copy: the cached plan stays as computed whatever a caller does
+    return CompositePlan.from_buffer_copy(_composite_plan(_key(p)))
+
+
+def tile_lists_plain(box, valid, Hc: int, Wc: int):
+    """Plain PyTorch version of kernel B's per-tile lists: tile t = ty *
+    ntx + tx of the TILE_H x TILE_W grid over the [Hc, Wc] canvas lists,
+    in ascending order, the valid particles whose non-empty box [y0, y1)
+    x [x0, x1) meets it.  Returns (offs [ntiles + 1] int32, lists
+    [offs[-1]] int32): tile t's list is lists[offs[t]:offs[t + 1]].  For
+    tests; the card builds and orders the lists inside
+    ``warp_composite``."""
+    dev = box.device
+    ntx, nty = -(-Wc // TILE_W), -(-Hc // TILE_H)
+    b = box.to(torch.int64)
+    fd = lambda a, d: torch.div(a, d, rounding_mode="floor")  # noqa: E731
+    y0 = fd(b[:, 0], TILE_H).clamp(min=0)
+    y1 = fd(b[:, 1] - 1, TILE_H).clamp(max=nty - 1)
+    x0 = fd(b[:, 2], TILE_W).clamp(min=0)
+    x1 = fd(b[:, 3] - 1, TILE_W).clamp(max=ntx - 1)
+    ok = ((valid != 0) & (b[:, 1] > b[:, 0]) & (b[:, 3] > b[:, 2])
+          & (y0 <= y1) & (x0 <= x1))
+    k = torch.nonzero(ok).flatten()
+    ny, nx = (y1 - y0 + 1)[k], (x1 - x0 + 1)[k]
+    cnt = ny * nx
+    kk = torch.repeat_interleave(k, cnt)
+    first = torch.repeat_interleave(torch.cumsum(cnt, 0) - cnt, cnt)
+    q = torch.arange(kk.numel(), device=dev) - first
+    nxk = torch.repeat_interleave(nx, cnt)
+    t = (y0[kk] + q // nxk) * ntx + x0[kk] + q % nxk
+    order = torch.argsort(t * max(box.shape[0], 1) + kk)
+    counts = torch.bincount(t, minlength=ntx * nty)
+    offs = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return offs.to(torch.int32), kk[order].to(torch.int32)
+
+
+_COMPOSITE_ARGS = {
+    "warp_composite_launch":
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 6 + [CompositeParams, CompositePlan]
+        + [ctypes.c_void_p] * 2,
+    "warp_composite_fill":
+        [ctypes.c_void_p] * 2 + [CompositeParams, CompositePlan]
+        + [ctypes.c_void_p] * 2}
+
+
+def _composite_fn(name: str):
+    from volq_torch._build import load
+    fn = getattr(load("warp_composite"), name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = _COMPOSITE_ARGS[name]
+    return fn
+
+
+def _list_scratch(plan: CompositePlan, dev) -> torch.Tensor:
+    """Kernel B's list scratch: the tiles' counts [ntiles], then their
+    slots, as filled [ntiles, capt] and ordered [ntiles, capt] (a list
+    longer than the block holds in shared memory), int32."""
+    nt = plan.ntx * plan.nty
+    return torch.empty(nt * (1 + 2 * plan.capt), dtype=torch.int32,
+                       device=dev)
+
+
+def tile_fill(box, valid, p: CompositeParams,
+              plan: CompositePlan | None = None):
+    """The first kernel of kernel B's launch alone, for tests and for
+    timing that part of B: each valid particle with a non-empty box
+    appended to the slots of every tile its box meets.  Returns (counts
+    [ntiles] int32, slots [ntiles, capt] int32): tile t's list has
+    counts[t] particles, of which slots[t, :min(counts[t], capt)] hold
+    the first to arrive, in no order (a longer list did not fit: B tests
+    every particle on that tile).  On the CPU: ``tile_lists_plain``'s
+    lists in that layout, in order."""
+    dev = box.device
+    _check(box, "box", (torch.int32,), (p.N, 4))
+    _check(valid, "valid", (torch.int32,), (p.N,), dev)
+    plan = composite_plan(p) if plan is None else plan
+    nt = plan.ntx * plan.nty
+    if dev.type != "cuda":
+        offs, lists = tile_lists_plain(box, valid, p.Hc, p.Wc)
+        counts = offs[1:] - offs[:-1]
+        slots = torch.zeros((nt, plan.capt), dtype=torch.int32)
+        for t, (a, b) in enumerate(zip(offs[:-1].tolist(),
+                                       offs[1:].tolist())):
+            n = min(b - a, plan.capt)
+            slots[t, :n] = lists[a:a + n]
+        return counts, slots
+    scratch = _list_scratch(plan, dev)
+    err = _composite_fn("warp_composite_fill")(
+        _ptr(box), _ptr(valid), p, plan, _ptr(scratch), _stream(dev))
+    if err:
+        raise RuntimeError(f"tile fill launch failed: CUDA error {err}")
+    tile_fill.launches += 1
+    return scratch[:nt], scratch[nt:nt * (1 + plan.capt)].view(nt, plan.capt)
+
+
+tile_fill.launches = 0
 
 
 def _taps(g, n: int, pdt):
@@ -657,7 +891,8 @@ def warp_composite_plain(canvas, Pm, ayf, axf, box, cc, valid,
 
 
 def warp_composite(canvas, Pm, ayf, axf, box, cc, valid,
-                   p: CompositeParams, pdt, cc2=None):
+                   p: CompositeParams, pdt, cc2=None,
+                   plan: CompositePlan | None = None):
     """Kernel B: OVER of the depth-ordered particles' placed planes onto
     ``canvas`` [4, Hc, Wc] (bf16 or fp32; pixels or cells; updated in
     place and returned).  ``Pm`` fp32: P2m [N, RM, RM] unlit, (P1m, P2m)
@@ -673,7 +908,11 @@ def warp_composite(canvas, Pm, ayf, axf, box, cc, valid,
     channels update as ``cdt(c + Tw * U)``.  The per-pixel walk follows
     the list's order; the reference's pair and hazard reorders only swap
     depth-adjacent particles whose canvas windows are disjoint, so they
-    change no pixel's order and have no counterpart here."""
+    change no pixel's order and have no counterpart here.  ``plan``: the
+    launch's tile grid and list slots (default ``composite_plan`` of
+    these shapes; a plan the kernel cannot take raises).  One counted
+    launch is two kernels: the lists' fill (``tile_fill``) and the
+    composite, which orders each tile's list and walks it."""
     dev = canvas.device
     N, RM = p.N, p.RM
     _check(canvas, "canvas", (torch.bfloat16, torch.float32),
@@ -696,15 +935,14 @@ def warp_composite(canvas, Pm, ayf, axf, box, cc, valid,
     if dev.type != "cuda":
         return warp_composite_plain(canvas, Pm, ayf, axf, box, cc, valid,
                                     p, pdt, cc2)
-    from volq_torch._build import load
-    fn = load("warp_composite").warp_composite_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int] + [ctypes.c_void_p] * 6 \
-        + [CompositeParams, ctypes.c_void_p]
-    err = fn(_ptr(canvas), int(canvas.dtype == torch.bfloat16), _ptr(Pm),
-             int(pdt == torch.bfloat16), _ptr(ayf), _ptr(axf), _ptr(box),
-             _ptr(cc), _ptr(cc2), _ptr(valid), p, _stream(dev))
+    if plan is None:
+        plan = composite_plan(p)
+    scratch = _list_scratch(plan, dev)
+    err = _composite_fn("warp_composite_launch")(
+        _ptr(canvas), int(canvas.dtype == torch.bfloat16), _ptr(Pm),
+        int(pdt == torch.bfloat16), _ptr(ayf), _ptr(axf), _ptr(box),
+        _ptr(cc), _ptr(cc2), _ptr(valid), p, plan, _ptr(scratch),
+        _stream(dev))
     if err:
         raise RuntimeError(f"warp_composite launch failed: CUDA error {err}")
     warp_composite.launches += 1

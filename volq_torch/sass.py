@@ -1,0 +1,206 @@
+"""Static instruction counts of the port's built kernels, from their SASS.
+
+    python3 -m volq_torch.sass warp_march [--match TEXT] [--json PATH]
+
+Builds the named kernel source if needed (``_build.load``), disassembles
+the library with ``cuobjdump -sass`` and prints, for every kernel function
+whose demangled name contains ``--match``: its instruction count, its
+registers and local (spill) bytes (``cuobjdump -res-usage``), and each loop
+-- a backward branch and the code it jumps back over -- with its
+instruction count, nested loops included, and that count by instruction
+class (shared / global loads and stores, fp32 arithmetic, conversions,
+special functions, integer, compares and selects, barriers, branches).
+A loop body's count is static: code that a forward branch skips is counted
+too.  Needs the CUDA toolkit (``cuobjdump``), not a card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+CLASSES = (
+    ("lds", ("LDS", "LDSM")),
+    ("sts", ("STS",)),
+    ("ldg", ("LDG", "LD", "LDC", "LDL")),
+    ("stg", ("STG", "ST", "STL", "RED", "ATOM", "ATOMG", "ATOMS")),
+    ("cp_async", ("LDGSTS", "LDGDEPBAR", "DEPBAR", "UBLKCP", "SYNCS")),
+    ("fp32", ("FADD", "FMUL", "FFMA", "FMNMX", "FSET", "FSWZADD")),
+    ("convert", ("F2F", "F2FP", "F2I", "I2F", "FRND", "I2FP", "F2IP")),
+    ("mufu", ("MUFU",)),
+    ("int", ("IADD3", "IMAD", "LEA", "SHF", "LOP3", "IABS", "IMNMX",
+             "VIMNMX", "FLO", "POPC", "BREV", "PRMT", "SGXT", "IMUL",
+             "LEA.HI", "UIADD3", "UIMAD", "ULEA", "USHF", "ULOP3")),
+    ("compare", ("ISETP", "FSETP", "PLOP3", "SEL", "FSEL", "P2R", "R2P",
+                 "UISETP", "USEL", "VOTE", "VOTEU")),
+    ("move", ("MOV", "UMOV", "S2R", "S2UR", "CS2R", "R2UR", "SHFL",
+              "IMAD.MOV")),
+    ("barrier", ("BAR", "MEMBAR", "WARPSYNC", "BSSY", "BSYNC", "NANOSLEEP")),
+    ("branch", ("BRA", "BRX", "EXIT", "RET", "CALL", "JMP")),
+)
+_CLASS = {op: name for name, ops in CLASSES for op in ops}
+
+_FUNC = re.compile(r"^\s*Function\s*:\s*(\S+)")
+_INSN = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)"
+                   r"([^;]*);")
+_LABEL = re.compile(r"^\s*(\.L_\w+):")
+_TARGET = re.compile(r"(0x[0-9a-f]+|`?\(?(\.L_\w+)\)?`?)\s*$")
+
+
+def classify(op: str) -> str:
+    """An opcode's class, by its longest dotted prefix that has one."""
+    parts = op.split(".")
+    for n in range(len(parts), 0, -1):
+        cls = _CLASS.get(".".join(parts[:n]))
+        if cls:
+            return cls
+    return "other"
+
+
+def parse(text: str) -> dict:
+    """``cuobjdump -sass`` text -> {mangled name: [(addr, opcode, operands,
+    label or None)]}, the label being one that starts at that address."""
+    funcs, cur, pending = {}, None, None
+    for line in text.splitlines():
+        m = _FUNC.match(line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            pending = None
+            continue
+        if cur is None:
+            continue
+        m = _LABEL.match(line)
+        if m:
+            pending = m.group(1)
+            continue
+        m = _INSN.match(line)
+        if m:
+            cur.append((int(m.group(1), 16), m.group(3), m.group(4).strip(),
+                        pending))
+            pending = None
+    return funcs
+
+
+def loops(insns) -> list:
+    """Loops of one function: each backward branch (``BRA`` to an address
+    or label before it; not the branch to itself that pads a function's
+    end) gives [start index, end index]."""
+    at = {a: i for i, (a, _, _, _) in enumerate(insns)}
+    label = {lab: i for i, (_, _, _, lab) in enumerate(insns) if lab}
+    out = []
+    for i, (_, op, args, _) in enumerate(insns):
+        if op.split(".")[0] != "BRA":
+            continue
+        m = _TARGET.search(args)
+        if not m:
+            continue
+        j = (label.get(m.group(2)) if m.group(2)
+             else at.get(int(m.group(1), 16)))
+        if j is not None and j < i:
+            out.append((j, i))
+    return sorted(set(out))
+
+
+def summary(insns) -> dict:
+    """Instruction count and loops (with their class counts) of one
+    function."""
+    recs = []
+    spans = loops(insns)
+    for j, i in spans:
+        body = insns[j:i + 1]
+        hist: dict[str, int] = {}
+        for _, op, _, _ in body:
+            c = classify(op)
+            hist[c] = hist.get(c, 0) + 1
+        depth = sum(1 for a, b in spans if a <= j and i <= b) - 1
+        recs.append({"start": insns[j][0], "end": insns[i][0],
+                     "insns": len(body), "depth": depth,
+                     "classes": dict(sorted(hist.items()))})
+    return {"insns": len(insns), "loops": recs}
+
+
+def demangle(names) -> dict:
+    """Mangled -> demangled names (c++filt where present)."""
+    names = list(names)
+    filt = shutil.which("c++filt") or shutil.which("cu++filt")
+    if not filt or not names:
+        return {n: n for n in names}
+    out = subprocess.run([filt], input="\n".join(names), text=True,
+                         capture_output=True, check=True).stdout.splitlines()
+    return dict(zip(names, out))
+
+
+def _cuobjdump() -> str:
+    for cand in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
+        if cand and Path(cand).exists():
+            return cand
+    raise RuntimeError("cuobjdump not found (CUDA toolkit needed)")
+
+
+def resources(lib: Path) -> dict:
+    """{mangled name: {"REG": n, "LOCAL": bytes, "SHARED": bytes, ...}}."""
+    text = subprocess.run([_cuobjdump(), "-res-usage", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function\s+(\S+?):?\s*$", line)
+        if m:
+            cur = m.group(1)
+            continue
+        if cur and "REG:" in line:
+            out[cur] = {k: int(v) for k, v in
+                        re.findall(r"([A-Z]+):(\d+)", line)}
+            cur = None
+    return out
+
+
+def analyse(name: str, match: str = "") -> list:
+    """Build kernel source ``name`` if needed and summarise its kernel
+    functions whose demangled name contains ``match``."""
+    from volq_torch import _build
+    _build.load(name)
+    lib = _build._lib_path(name)
+    text = subprocess.run([_cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = parse(text)
+    dem = demangle(funcs)
+    res = resources(lib)
+    out = []
+    for mangled, insns in funcs.items():
+        if match not in dem[mangled]:
+            continue
+        out.append({"function": dem[mangled], "mangled": mangled,
+                    "resources": res.get(mangled, {}), **summary(insns)})
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("source", help="kernel source under csrc/, e.g. "
+                    "warp_march")
+    ap.add_argument("--match", default="", help="only functions whose "
+                    "demangled name contains this")
+    ap.add_argument("--json", help="also write the records here")
+    a = ap.parse_args(argv)
+    recs = analyse(a.source, a.match)
+    for r in recs:
+        rs = r["resources"]
+        print(f"[sass] {r['function']}: {r['insns']} instructions, "
+              f"{rs.get('REG', '?')} registers, local {rs.get('LOCAL', '?')}"
+              f" B")
+        for lp in r["loops"]:
+            print(f"[sass]   loop {lp['start']:#06x}-{lp['end']:#06x} depth "
+                  f"{lp['depth']}: {lp['insns']} instructions "
+                  + " ".join(f"{k} {v}" for k, v in lp["classes"].items()))
+    if a.json:
+        Path(a.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(a.json).write_text(json.dumps(recs, indent=1))
+    return 0 if recs else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

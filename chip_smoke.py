@@ -62,8 +62,8 @@ final result line):
   7. hold A and B in center-lit mode (two planes) and the unfused pair,
      kernels C (warp_images) and D (composite_chunk), against their plain
      versions at c4's shapes (4096 particles fused; two megachunks of
-     2048 unfused), bf16 (c4's mode) and fp32: A and C within 1e-5 with
-     equal clamp counts, B and D bit-equal;
+     2048 unfused), bf16 (c4's mode) and fp32: A within 1e-5 and C at
+     max abs err 0, each with equal clamp counts, B and D bit-equal;
   8. drive c4 as shipped (fused): frames(n=8) from zeroed counters must
      show one launch of A and B per frame; then c4 with warp_fused=False:
      frames(n=4) from zeroed counters must show two launches of C and D
@@ -106,17 +106,20 @@ final result line):
      launches, error, ms, plain ms and bound on the c4 path, with the c1
      warp, c2, c3, ortho, c4 per-step and c5 paths' numbers under
      "c1_warp", "c2", "c3", "c3_ortho", "c4_ortho", "c4_perstep" and
-     "c5"; for A and B also "device_ms", their time replayed from a
-     CUDA graph (without the Python wrappers' host time), A's arm, ring
-     depth and block size and the SM clock while its launches run
-     ("sm_mhz"), B's "fill_ms" (the first of its two kernels, the lists'
-     fill, alone), list slots and "sub_tile_visits" (the 4 x 32 warp
-     sub-tiles the valid boxes meet, summed), and on c3, c4, c4 per-step
-     and c5 A's
+     "c5"; for every warp kernel also "device_ms", its time replayed
+     from a CUDA graph (without the Python wrappers' host time); for A, C
+     and D the SM clock while their launches run ("sm_mhz"); A's and
+     C's arm, ring depth and block size (C also its y-pass band and
+     shared bytes), B's and D's "fill_ms" (the first of their two
+     kernels, the lists' fill, alone) and list slots, their
+     "sub_tile_visits" (the 4 x 32 warp sub-tiles the valid boxes / the
+     images' rects meet, summed), D's longest list; on c3, c4, c4
+     per-step and c5 A's, and on c4 and c4 per-step unfused C's,
      "sweep_ms": a ring of two and the widest blocks, each output equal
-     to the planned launch's (the [sweep] lines); the [timing] lines also
-     print the kernels' readings before their redesign (PREV_MS, a
-     prior run's, not this run's); "warp_march ortho" and
+     to the planned launch's (the [sweep] lines); the [timing]
+     lines also print each kernel's reading in the last run before C's
+     and D's redesign (PREV_MS, a prior run's, not this run's);
+     "warp_march ortho" and
      "warp_images ortho": A's and C's orthographic mode on the c3 and c4
      ortho paths; per probe kernel: launches of the probes' run, error,
      and ms, plain ms, bound and -- probe_mma -- the library's time for
@@ -158,13 +161,21 @@ FP32_BUDGET = 1e-4
 # (tests/test_warp.py:233)
 XLA_BUDGET = 1e-5
 NAMES = ("warp_march", "warp_composite", "warp_images", "composite_chunk")
-# A's and B's ms per launch on each fused path before their redesign to
-# step-major staging and per-tile lists (this script's last run of the
-# earlier kernels, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 5),
-# printed on the [timing] lines beside this run's, labelled as that run's
-PREV_MS = {"c2": (0.3898, 0.0607), "c3": (0.9825, 0.2158),
-           "c3 ortho": (0.9699, 0.2401), "c4": (2.1106, 0.7677),
-           "c4 per-step": (3.8847, 0.7662), "c5": (9.3218, 3.1880)}
+# Each kernel's ms per launch on each path in this script's last run
+# before C's redesign onto A's march and D's onto per-tile lists (NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md section 5), printed on the [timing]
+# lines beside this run's, labelled as that run's
+PREV_MS = {
+    "c1 warp": {"warp_march": 0.1431, "warp_composite": 0.0473},
+    "c2": {"warp_march": 0.0877, "warp_composite": 0.0563},
+    "c3": {"warp_march": 0.2978, "warp_composite": 0.1732},
+    "c3 ortho": {"warp_march": 0.2734, "warp_composite": 0.1855},
+    "c4": {"warp_march": 0.8486, "warp_composite": 0.5737,
+           "warp_images": 1.6058, "composite_chunk": 0.2015},
+    "c4 per-step": {"warp_march": 1.4416, "warp_composite": 0.5735,
+                    "warp_images": 2.5816, "composite_chunk": 0.2014},
+    "c4 ortho": {"warp_images": 1.4449, "composite_chunk": 0.1950},
+    "c5": {"warp_march": 5.0899, "warp_composite": 2.3870}}
 # products of one torch.matmul batch that times probe_mma's library call
 LIB_BATCH = 65536
 PROBES = ("probe_mma", "probe_stage", "probe_window")
@@ -371,7 +382,7 @@ def check_unfused(tag, state, camera, light, cfg, lv, errs):
                   f"images {tuple(ik.shape)} {ik.dtype}: max|kernel - plain|"
                   f" = {err:.3e}, shift_clamped {int(ck[0])} vs "
                   f"{int(cpl[0])}, max {float(ik[:, :3].float().max()):.4f}")
-            assert err <= 1e-5, f"warp_images {_mode(c)} disagrees: {err}"
+            assert err == 0.0, f"warp_images {_mode(c)} disagrees: {err}"
             assert int(ck[0]) == int(cpl[0]), "shift_clamped disagrees"
             assert float(ik[:, :3].float().max()) > 0.0, "empty images"
             errs["warp_images"] = max(errs["warp_images"], err)
@@ -496,9 +507,15 @@ def bounds(march, comp, canvas):
 def bounds_unfused(chunks, canvas, itemsize):
     """Least time for one frame's launches of kernels C and D (summed
     over the megachunks), divided by the launches: the images written by
-    C and read by D dominate; D also moves the canvas in and out."""
+    C and read by D dominate; D also moves the canvas cells some image of
+    the chunk covers in and out (the others are not the function's to
+    touch)."""
+    from volq_torch.render import kernel as K
     c_by = c_fl = d_by = d_fl = 0
     for img_args, comp_args in chunks:
+        oy, ox, order, cp = comp_args
+        rects = K._chunk_rects(oy, ox, order, cp.RP)
+        met = _cells_met(rects, rects[:, 0] * 0 + 1, cp.Hc, cp.Wc)
         mp = img_args[6]
         npl = 2 if mp.lit else 1
         m_in, m_fl, nv = _march_work(img_args)
@@ -506,7 +523,7 @@ def bounds_unfused(chunks, canvas, itemsize):
         c_by += m_in + mp.N * 12 + img_bytes
         c_fl += m_fl + nv * (npl * 4 * (mp.RP * mp.RM + mp.RP * mp.RP)
                              + 13 * mp.RP * mp.RP)
-        d_by += (img_bytes + 2 * canvas.numel() * canvas.element_size()
+        d_by += (img_bytes + 2 * met * 4 * canvas.element_size()
                  + mp.N * 12)
         d_fl += mp.N * mp.RP * mp.RP * 7
     n = len(chunks)
@@ -664,8 +681,7 @@ def time_fused(tag, state, camera, light, cfg, sb, card, errs,
                                 "sub_tile_visits": visits}}
     if swept:
         extra["warp_march"]["sweep_ms"] = swept
-    prev = dict(zip(("warp_march", "warp_composite"),
-                    PREV_MS.get(tag, (None, None))))
+    prev = PREV_MS.get(tag, {})
     notes = {"warp_march": f"arm {plan.arm} (ring depth {plan.stages}), "
                            f"{mp.RM * plan.G} threads a block, SM clock "
                            f"under A's launches {mhz} MHz",
@@ -674,10 +690,8 @@ def time_fused(tag, state, camera, light, cfg, sb, card, errs,
                                f"{visits} warp sub-tile placements, the "
                                f"lists' fill alone {fill_ms:.4f} ms"}
     for name in ms:
-        was = ("" if prev[name] is None
-               else f", before the redesign {prev[name]:.4f} ms (a "
-                    f"prior run's reading, not this run's)")
-        print(f"[timing] {tag} {name}: kernel {ms[name]:.4f} ms{was} "
+        print(f"[timing] {tag} {name}: kernel {ms[name]:.4f} ms"
+              f"{_was(prev, name)} "
               f"(device {dev_ms[name]:.4f} ms), plain {plain[name]:.3f} "
               f"ms, bound {bnd[name][0]:.4f} ms ({bnd[name][1]}); "
               f"{notes[name]}  [{card}]")
@@ -688,9 +702,46 @@ def time_fused(tag, state, camera, light, cfg, sb, card, errs,
             for name in ms}
 
 
-def time_unfused(tag, state, camera, light, cfg, sb, card):
+def _was(prev, name):
+    """The [timing] lines' note of a kernel's reading in the last run
+    before C's and D's redesign (PREV_MS)."""
+    if name not in prev:
+        return ""
+    return (f", before C's and D's redesign {prev[name]:.4f} ms (a prior "
+            f"run's reading, not this run's)")
+
+
+def sweep_images(tag, img_args, images, card):
+    """C at launch plans beside the planned one, on the same inputs (each
+    output must equal the planned launch's): a ring of two stages, and
+    the widest blocks the march rect allows.  Returns {plan: ms}."""
+    import torch
+    from volq_torch.render import kernel as K
+    mp = img_args[6]
+    it = img_args[0].element_size()
+    plan = K.images_plan(mp, it)
+    wide = K.MARCH_BLOCK // mp.RM
+    out = {}
+    for G, D in ((plan.G, 2), (wide, plan.stages)):
+        alt = K.MarchPlan(G=G, stages=D, band=plan.band,
+                          smem=K.images_smem(mp, D, it, plan.band))
+        got, _ = K.warp_images(*img_args, plan=alt)
+        assert torch.equal(got, images), f"{tag}: warp_images {alt.arm} G={G}"
+        key = f"{mp.RM * G} threads, {alt.arm}"
+        out[key] = _cuda_ms(lambda: K.warp_images(*img_args, plan=alt), 10)
+    print(f"[sweep] {tag} warp_images: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items())
+          + f" (equal to the planned launch)  [{card}]")
+    return out
+
+
+def time_unfused(tag, state, camera, light, cfg, sb, card, sweep=False):
     """ms per launch of C, D and their plain versions (the mean over the
-    frame's megachunks), and their bounds."""
+    frame's megachunks), their device time replayed from CUDA graphs, and
+    their bounds; C's plan and the SM clock under its launches, D's fill
+    alone, list slots and longest list.  ``sweep``: also sweep_images (on
+    the first megachunk)."""
+    import torch
     from volq_torch.render import kernel as K
     from volq_torch.render.warp import unfused_inputs
     H = cfg.render.height
@@ -698,26 +749,69 @@ def time_unfused(tag, state, camera, light, cfg, sb, card):
                                0, H, sb[1])
     canvas = K.canvas_init(cfg, H, sb[0].device, fused=False)
     n = len(chunks)
-    ms = dict.fromkeys(("warp_images", "composite_chunk"), 0.0)
-    plain = dict(ms)
+    names = ("warp_images", "composite_chunk")
+    ms = dict.fromkeys(names, 0.0)
+    plain, dev_ms = dict(ms), dict(ms)
+    fill_ms, longest, visits, swept = 0.0, 0, 0, None
     for img_args, comp_args in chunks:
         images, _ = K.warp_images(*img_args)
+        if sweep and swept is None:
+            swept = sweep_images(tag, img_args, images, card)
         ms["warp_images"] += _cuda_ms(
             lambda: K.warp_images(*img_args), 10) / n
         ms["composite_chunk"] += _cuda_ms(
             lambda: K.composite_chunk(canvas, images, *comp_args), 10) / n
+        dev_ms["warp_images"] += _graph_ms(
+            lambda: K.warp_images(*img_args)) / n
+        dev_ms["composite_chunk"] += _graph_ms(
+            lambda: K.composite_chunk(canvas, images, *comp_args)) / n
+        fill_ms += _graph_ms(lambda: K.chunk_fill(*comp_args)) / n
+        longest = max(longest, int(K.chunk_fill(*comp_args)[0].max()))
+        rects = K._chunk_rects(*comp_args[:3], comp_args[3].RP)
+        visits += _sub_tile_visits(rects, rects[:, 0] * 0 + 1,
+                                   comp_args[3].Hc, comp_args[3].Wc)
         plain["warp_images"] += _cuda_ms(
             lambda: K.warp_images_plain(*img_args), 2) / n
         plain["composite_chunk"] += _cuda_ms(
             lambda: K.composite_chunk_plain(canvas, images, *comp_args),
             1, warm=False) / n
+    img_args, comp_args = chunks[0]
+    mp, it = img_args[6], img_args[0].element_size()
+    plan, dplan = K.images_plan(mp, it), K.chunk_plan(comp_args[3])
+    mhz = {"warp_images": _sm_clock_during(lambda: K.warp_images(*img_args),
+                                           ms["warp_images"]),
+           "composite_chunk": _sm_clock_during(
+               lambda: K.composite_chunk(canvas, images, *comp_args),
+               ms["composite_chunk"])}
+    extra = {"warp_images": {"arm": plan.arm, "stages": plan.stages,
+                             "threads": mp.RM * plan.G, "band": plan.band,
+                             "smem": plan.smem},
+             "composite_chunk": {"fill_ms": fill_ms,
+                                 "list_slots": dplan.capt,
+                                 "longest_list": longest,
+                                 "sub_tile_visits": visits // n}}
+    if swept:
+        extra["warp_images"]["sweep_ms"] = swept
+    notes = {"warp_images": f"arm {plan.arm} (ring depth {plan.stages}), "
+                            f"{mp.RM * plan.G} threads a block, y-pass band "
+                            f"{plan.band} rows, {plan.smem} B shared",
+             "composite_chunk": f"{dplan.ntx} x {dplan.nty} tiles, "
+                                f"{dplan.capt} list slots a tile, longest "
+                                f"list {longest}, {visits // n} warp "
+                                f"sub-tile visits a launch, the lists' fill "
+                                f"alone {fill_ms:.4f} ms"}
     bnd = bounds_unfused(chunks, canvas, sb[0].element_size())
+    prev = PREV_MS.get(tag, {})
     for name in ms:
+        extra[name]["sm_mhz"] = mhz[name]
         print(f"[timing] {tag} {name} (per launch, {n} per frame): kernel "
-              f"{ms[name]:.4f} ms, plain {plain[name]:.3f} ms, bound "
-              f"{bnd[name][0]:.4f} ms ({bnd[name][1]})  [{card}]")
-    return {name: {"ms": ms[name], "plain_ms": plain[name],
-                   "bound_ms": bnd[name][0], "bound_by": bnd[name][1]}
+              f"{ms[name]:.4f} ms{_was(prev, name)} (device "
+              f"{dev_ms[name]:.4f} ms), plain {plain[name]:.3f} ms, bound "
+              f"{bnd[name][0]:.4f} ms ({bnd[name][1]}); {notes[name]}, SM "
+              f"clock under its launches {mhz[name]} MHz  [{card}]")
+    return {name: {"ms": ms[name], "device_ms": dev_ms[name],
+                   "plain_ms": plain[name], "bound_ms": bnd[name][0],
+                   "bound_by": bnd[name][1], **extra[name]}
             for name in ms}
 
 
@@ -1157,7 +1251,8 @@ def main() -> int:
     same_image("c4", st_u, camera, light, cfg, ucfg, lv, sb)
     c4_times = time_fused("c4", st_f, camera, light, cfg, sb, card, errs,
                           sweep=True)
-    c4_times.update(time_unfused("c4", st_f, camera, light, ucfg, sb, card))
+    c4_times.update(time_unfused("c4", st_f, camera, light, ucfg, sb, card,
+                                 sweep=True))
     for tag, st, c in (("c4 fused", st_f, cfg), ("c4 unfused", st_u, ucfg)):
         time_loop(tag, (st, camera, light, lv, sb), c, card)
 
@@ -1195,7 +1290,7 @@ def main() -> int:
     p_times = time_fused("c4 per-step", sp_f, camera, light, pcfg, psb, card,
                          errs, sweep=True)
     p_times.update(time_unfused("c4 per-step", sp_f, camera, light, pucfg,
-                                psb, card))
+                                psb, card, sweep=True))
     for tag, st, c in (("c4 per-step fused", sp_f, pcfg),
                        ("c4 per-step unfused", sp_u, pucfg)):
         time_loop(tag, (st, camera, light, lv, psb), c, card)

@@ -56,7 +56,7 @@ def test_validation_errors_match_reference(kw):
 
 def test_state_converters_round_trip(tiny_cfg):
     ref = jax.device_get(init_scene(tiny_cfg))
-    st = state_from_numpy(ref)
+    st = state_from_numpy(ref, "cpu")
     assert st.volumes.dtype == torch.bfloat16
     assert st.base_key.dtype == torch.int64 and st.frame.dim() == 0
     back = state_to_numpy(st)
@@ -78,7 +78,7 @@ def test_camera_light_converters_round_trip(tiny_cfg):
     _, cam, light = setup(tiny_cfg)
     for nt, to, back in ((cam, camera_from_numpy, camera_to_numpy),
                          (light, light_from_numpy, light_to_numpy)):
-        got = back(to(nt))
+        got = back(to(nt, "cpu"))
         for a, b in zip(nt, got):
             np.testing.assert_array_equal(np.asarray(a), b)
 
@@ -90,7 +90,7 @@ def test_port_camera_matches_reference(tiny_cfg):
     from volq_torch.scene.state import build_camera as tbuild
     c = tiny_cfg.camera
     ref = build_camera(c, 128, 64)
-    got = tbuild(TC.CameraConfig(**dataclasses.asdict(c)), 128, 64)
+    got = tbuild(TC.CameraConfig(**dataclasses.asdict(c)), 128, 64, "cpu")
     for a, b in zip(ref, got):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
     pos = np.random.default_rng(1).standard_normal((64, 3)).astype(np.float32)

@@ -57,9 +57,9 @@ def _both(cfg):
     the port (carried across as numpy)."""
     state, camera, light = JL.setup(cfg)
     host = jax.device_get((state, camera, light))
-    return (state, camera, light), (state_from_numpy(host[0]),
-                                    camera_from_numpy(host[1]),
-                                    light_from_numpy(host[2]))
+    return (state, camera, light), (state_from_numpy(host[0], "cpu"),
+                                    camera_from_numpy(host[1], "cpu"),
+                                    light_from_numpy(host[2], "cpu"))
 
 
 def _ortho_c1():

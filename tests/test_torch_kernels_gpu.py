@@ -12,7 +12,16 @@ unlit, center-lit, per-step lit (also with every particle behind the
 eye plane, steps reversed); pixel, coarse and scaled canvases, with and
 without the interleaved association; the orthographic mode of A and C
 (also at a march rect of 128, the largest A and C take); and the warp
-engine's XLA path (plain torch) on the card against the CPU.  A's arms
+engine's XLA path (plain torch) on the card against the CPU.  C's arms
+(staged with the planned ring and a ring of two, global; the narrowest
+and widest blocks; y-pass bands of the plan's rows, one row and every
+row; RM == RP; RM 128; the global arm where no ring fits) are held at
+max abs err 0 with an equal clamp count, D's cases (every canvas / image
+dtype pair, through an order and as stored; a tile every image covers,
+past its list slots; a list longer than one bitmap window of its order;
+bf16 images as a view into a longer buffer) with torch.equal, bf16
+images whose edge word reaches past their storage refused, and D's fill
+kernel against chunk_lists_plain.  A's arms
 (staged with the planned ring and a ring of two, global; the narrowest
 and widest blocks; the global arm where no ring fits; RM 128 in both
 projections) and B's edges (a tile every particle covers, with a list
@@ -652,6 +661,273 @@ def test_tile_fill_matches_plain():
         counts, slots = K.tile_fill(box, valid, cp)
         offs, lists = K.tile_lists_plain(box.cpu(), valid.cpu(), cp.Hc,
                                          cp.Wc)
+        assert torch.equal(counts.cpu(), offs[1:] - offs[:-1])
+        assert int(counts.max()) <= plan.capt
+        counts, slots = counts.cpu(), slots.cpu()
+        for t in range(counts.numel()):
+            a, b = int(offs[t]), int(offs[t + 1])
+            assert torch.equal(slots[t, :b - a].sort().values, lists[a:b]), t
+
+
+# --------------------------------------------------------------------------
+# kernel C on the step-major march (its arms, band widths, RM == RP, RM
+# 128, the global arm) at max abs err 0, and kernel D on per-tile lists
+# (every dtype pair, order or none, the overflow fallback, a list past one
+# bitmap window) and its fill, held with torch.equal
+
+def _images_equal(img_args, plan=None, seen=True):
+    images, clamp = K.warp_images(*img_args, plan=plan)
+    ref, ref_clamp = K.warp_images_plain(*img_args)
+    assert images.dtype == ref.dtype
+    assert float((images.float() - ref.float()).abs().max()) == 0.0
+    assert torch.equal(clamp, ref_clamp)
+    assert not seen or float(images[:, :3].float().max()) > 0.0
+    return images
+
+
+def _unfused_chunks(cfg, mega=8):
+    ucfg = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, warp_fused=False, warp_mega=mega))
+    state, camera, light = loop.setup(ucfg, device="cuda")
+    lv = loop.cached_light_volumes(state, light, ucfg)
+    bank, lbank = loop.cached_slab_banks(state, lv, ucfg)
+    chunks, _ = unfused_inputs(state.particles, camera, light, ucfg, bank,
+                               0, ucfg.render.height, lbank)
+    return chunks, bank
+
+
+@pytest.mark.parametrize("fp32", [False, True], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("proj", ["persp", "ortho"])
+@pytest.mark.parametrize("light", sorted(MODES))
+def test_images_arms_match_plain(light, proj, fp32):
+    """C's staged arm (the plan's ring and a ring of two) and its global
+    arm, the narrowest and widest blocks, y-pass bands of the plan's
+    rows, one row and every row, each lighting mode, both projections,
+    from the front and (per-step lit: steps reversed) from behind."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    for view in ("yawed", "behind"):
+        cfg = _scene(EYES[view], fp32, **MODES[light])
+        if proj == "ortho":
+            cfg = _ortho(cfg)
+        chunks, bank = _unfused_chunks(cfg)
+        img_args = chunks[0][0]
+        mp, it = img_args[6], bank.element_size()
+        assert mp.ortho == (proj == "ortho") and mp.RM < mp.RP
+        plan = K.images_plan(mp, it)
+        assert plan.stages >= 2 and 1 <= plan.band <= mp.RP
+        ref = _images_equal(img_args)
+
+        def alt(G=plan.G, stages=plan.stages, band=plan.band):
+            return K.MarchPlan(G=G, stages=stages, band=band,
+                               smem=K.images_smem(mp, stages, it, band))
+
+        for a in (alt(stages=2), alt(stages=0), alt(band=1),
+                  alt(band=mp.RP), alt(G=-(-mp.RM // K.MARCH_CAP)),
+                  alt(G=K.MARCH_BLOCK // mp.RM)):
+            assert torch.equal(_images_equal(img_args, a), ref)
+        for bad in (K.MarchPlan(G=plan.G, stages=plan.stages, band=plan.band,
+                                smem=plan.smem + 16), alt(band=0)):
+            with pytest.raises(RuntimeError):   # plans the kernel refuses
+                K.warp_images(*img_args, plan=bad)
+        for img_args, _ in chunks[1:]:
+            _images_equal(img_args, seen=False)
+
+
+@pytest.mark.parametrize("fp32", [False, True], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("light", sorted(MODES))
+def test_images_without_upsample(light, fp32):
+    """RM == RP (no march rect below the rect): the epilogue is the
+    identity, band 0; a band given there is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    cfg = _scene(EYES["yawed"], fp32, **MODES[light])
+    cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, warp_march_rect=0))
+    chunks, bank = _unfused_chunks(cfg)
+    img_args = chunks[0][0]
+    mp = img_args[6]
+    assert mp.RM == mp.RP == 64
+    plan = K.images_plan(mp, bank.element_size())
+    assert plan.band == 0
+    _images_equal(img_args)
+    with pytest.raises(RuntimeError):
+        K.warp_images(*img_args, plan=K.MarchPlan(
+            G=plan.G, stages=plan.stages, band=1,
+            smem=K.images_smem(mp, plan.stages, bank.element_size(), 1)))
+
+
+@pytest.mark.parametrize("rect", [128, 176], ids=["RP128", "RP176"])
+@pytest.mark.parametrize("light", ["unlit", "center"])
+def test_images_at_march_rect_128(light, rect):
+    """RM = 128 (896-thread blocks, a 64 KB plane): without upsample (RP
+    128) and upsampled to 176, perspective, fp32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    cfg = _scene(EYES["pitched"], True, **MODES[light])
+    cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, warp_rect=rect, warp_march_rect=128, warp_slab_vx=0,
+        steps=16))
+    chunks, _ = _unfused_chunks(cfg)
+    img_args = chunks[0][0]
+    assert img_args[6].RM == 128 and img_args[6].RP == rect
+    _images_equal(img_args)
+
+
+def test_images_global_arm_where_no_ring_fits():
+    """Per-step lit in fp32 over full-x 128^3 slabs: no ring of two fits,
+    so C's plan, like A's, names the global arm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    cfg = _scene(EYES["yawed"], True, **PERSTEP)
+    cfg = dataclasses.replace(
+        cfg, n_particles=6, volume=dataclasses.replace(cfg.volume, size=128,
+                                                       bank_size=2),
+        render=dataclasses.replace(cfg.render, warp_slab_vx=0, steps=6))
+    chunks, _ = _unfused_chunks(cfg, mega=0)
+    img_args = chunks[0][0]
+    assert K.images_plan(img_args[6], 4).arm == "global"
+    _images_equal(img_args)
+
+
+def _synthetic_chunk(n, seed, RP=24, Hc=96, Wc=320, one_tile=False,
+                     ordered=True, cdt=torch.float32, idt=torch.bfloat16,
+                     t_min=0.2):
+    """Kernel D's inputs made up with numpy: random images (RGB in [0, 1),
+    T in [t_min, 1)), origins inside the canvas (``one_tile``: every rect
+    covers canvas tile (1, 1)), a random composite order or none, and a
+    canvas of random values (T in (0.5, 1])."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    dev = "cuda"
+    img = rng.random((n, 4, RP, RP), np.float32)
+    img[:, 3] = t_min + (1 - t_min) * img[:, 3]
+    if one_tile:
+        oy = rng.integers(K.TILE_H + 1 - RP, K.TILE_H, n).clip(0)
+        ox = rng.integers(K.TILE_W + 1 - RP, K.TILE_W, n).clip(0)
+    else:
+        oy = rng.integers(0, Hc - RP + 1, n)
+        ox = rng.integers(0, Wc - RP + 1, n)
+    order = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev) \
+        if ordered else None
+    canvas = torch.from_numpy(rng.random((4, Hc, Wc), np.float32))
+    canvas[3] = 0.5 + 0.5 * canvas[3]
+    t = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, np.int32)).to(dev)
+    return (canvas.to(cdt).to(dev),
+            (torch.from_numpy(img).to(idt).to(dev), t(oy), t(ox), order,
+             K.ChunkParams(n=n, RP=RP, Hc=Hc, Wc=Wc)))
+
+
+@pytest.mark.parametrize("ordered", [True, False], ids=["order", "stored"])
+@pytest.mark.parametrize("idt", [torch.bfloat16, torch.float32],
+                         ids=["img_bf16", "img_fp32"])
+@pytest.mark.parametrize("cdt", [torch.bfloat16, torch.float32],
+                         ids=["canvas_bf16", "canvas_fp32"])
+def test_chunk_dtypes_and_order_match_plain(cdt, idt, ordered):
+    """D on scattered rects, every canvas / image dtype pair, through a
+    composite order and as stored: torch.equal, every pixel outside every
+    rect untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    canvas, args = _synthetic_chunk(600, 3, cdt=cdt, idt=idt,
+                                    ordered=ordered)
+    n0 = K.composite_chunk.launches
+    out = K.composite_chunk(canvas.clone(), *args)
+    assert K.composite_chunk.launches == n0 + 1
+    ref = K.composite_chunk_plain(canvas.clone(), *args)
+    assert torch.equal(out, ref)
+    assert not torch.equal(out, canvas)
+
+
+def test_chunk_one_tile_every_image_covers():
+    """1500 images whose rects all cover tile (1, 1): one list 1500 long
+    (longer than a block holds in shared memory); then with no list slots
+    (every warp tests every composite position) and with 5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    canvas, args = _synthetic_chunk(1500, 5, one_tile=True, t_min=0.9)
+    ref = K.composite_chunk_plain(canvas.clone(), *args)
+    assert torch.equal(K.composite_chunk(canvas.clone(), *args), ref)
+    cp = args[4]
+    plan = K.chunk_plan(cp)
+    counts, _ = K.chunk_fill(*args[1:])
+    assert int(counts[1 * plan.ntx + 1]) == 1500 > 1024
+    for capt in (0, 5):
+        few = K.CompositePlan(ntx=plan.ntx, nty=plan.nty, capt=capt)
+        assert torch.equal(K.composite_chunk(canvas.clone(), *args,
+                                             plan=few), ref)
+    with pytest.raises(RuntimeError):   # a plan the kernel refuses
+        K.composite_chunk(canvas.clone(), *args, plan=K.CompositePlan(
+            ntx=plan.ntx + 1, nty=plan.nty, capt=plan.capt))
+
+
+def test_chunk_bf16_views_and_edge_words():
+    """bf16 images as a view one value into a buffer one value longer
+    (the composite equal to the plain version's), and as a view whose last
+    value's aligned 4-byte word reaches past its storage (refused before
+    the launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    canvas, args = _synthetic_chunk(50, 7)
+    images = args[0]
+    m = images.numel()
+    buf = torch.empty(m + 1, dtype=images.dtype, device=images.device)
+    inner = buf[1:].view(images.shape)
+    inner.copy_(images)
+    n0 = K.composite_chunk.launches
+    with pytest.raises(ValueError):
+        K.composite_chunk(canvas.clone(), inner, *args[1:])
+    assert K.composite_chunk.launches == n0
+    buf = torch.empty(m + 2, dtype=images.dtype, device=images.device)
+    inner = buf[1:-1].view(images.shape)
+    inner.copy_(images)
+    ref = K.composite_chunk_plain(canvas.clone(), *args)
+    assert torch.equal(K.composite_chunk(canvas.clone(), inner, *args[1:]),
+                       ref)
+
+
+def test_chunk_list_past_one_bitmap_window():
+    """70000 images, all on tile (1, 1) of a 2 x 2 tile canvas, through a
+    composite order: the list is longer than one bitmap window (65536
+    positions) of the block's list order.  T close to 1, so that the
+    tile's transmittance stays well above 0 to the last image and an
+    image out of order would change the canvas."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    n = 70000
+    canvas, args = _synthetic_chunk(n, 9, RP=8, Hc=32, Wc=128,
+                                    one_tile=True, cdt=torch.float32,
+                                    idt=torch.float32, t_min=0.99998)
+    args[0][:, :3] *= 1e-3
+    plan = K.chunk_plan(args[4])
+    assert plan.capt == n
+    counts, _ = K.chunk_fill(*args[1:])
+    assert int(counts[1 * plan.ntx + 1]) == n
+    ref = K.composite_chunk_plain(canvas.clone(), *args)
+    assert float(ref[3, 16:, 64:].min()) > 0.05
+    assert torch.equal(K.composite_chunk(canvas.clone(), *args), ref)
+
+
+def test_chunk_fill_matches_plain():
+    """D's fill kernel against chunk_lists_plain: scattered rects through
+    an order and as stored, and 70000 images on one tile; each tile's
+    slots, sorted, are its plain list."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    for n, one, ordered in ((3000, False, True), (3000, False, False),
+                            (70000, True, True)):
+        _, args = _synthetic_chunk(n, n, RP=8 if one else 24,
+                                   Hc=32 if one else 96,
+                                   Wc=128 if one else 320, one_tile=one,
+                                   ordered=ordered)
+        oy, ox, order, cp = args[1:]
+        plan = K.chunk_plan(cp)
+        n0 = K.chunk_fill.launches
+        counts, slots = K.chunk_fill(oy, ox, order, cp)
+        assert K.chunk_fill.launches == n0 + 1
+        offs, lists = K.chunk_lists_plain(
+            oy.cpu(), ox.cpu(), None if order is None else order.cpu(), cp)
         assert torch.equal(counts.cpu(), offs[1:] - offs[:-1])
         assert int(counts.max()) <= plan.capt
         counts, slots = counts.cpu(), slots.cpu()

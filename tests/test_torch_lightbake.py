@@ -64,6 +64,6 @@ def test_bf16_bank_in_chunks_and_converter(monkeypatch):
         jnp.asarray(vol.float().numpy(), jnp.bfloat16), jnp.asarray(L.numpy()),
         axis=1))
     assert np.abs(whole.numpy() - ref).max() <= TOL
-    moved = light_volumes_from_numpy(ref)
+    moved = light_volumes_from_numpy(ref, "cpu")
     assert moved.dtype == torch.float32
     np.testing.assert_array_equal(moved.numpy(), ref)

@@ -72,7 +72,7 @@ def _bf16_ulp(x):
 ], ids=["3x16", "5x24"])
 def test_bake_bank_within_one_bf16_ulp(args):
     ref = np.asarray(jb.bake_bank(**args).astype(jnp.float32), np.float64)
-    got = tb.bake_bank(**args)
+    got = tb.bake_bank(**args, device="cpu")
     assert got.dtype == torch.bfloat16
     got = got.float().numpy().astype(np.float64)
     assert ref.max() > 0.05
@@ -82,6 +82,6 @@ def test_bake_bank_within_one_bf16_ulp(args):
 
 
 def test_bake_chunking_is_invisible(monkeypatch):
-    whole = tb.bake_bank(6, 16, 3, octaves=3)
+    whole = tb.bake_bank(6, 16, 3, octaves=3, device="cpu")
     monkeypatch.setattr(tb, "_CHUNK_VOXELS", 16 ** 3 * 4)   # 4 per chunk
-    assert torch.equal(tb.bake_bank(6, 16, 3, octaves=3), whole)
+    assert torch.equal(tb.bake_bank(6, 16, 3, octaves=3, device="cpu"), whole)

@@ -49,9 +49,10 @@ def _port(cfg):
 
 def _scene(cfg):
     state, camera, light = setup(cfg)
-    tst = state_from_numpy(jax.device_get(state))
-    tli = light_from_numpy(light)
-    return ((state, camera, light), (tst, camera_from_numpy(camera), tli),
+    tst = state_from_numpy(jax.device_get(state), "cpu")
+    tli = light_from_numpy(light, "cpu")
+    return ((state, camera, light),
+            (tst, camera_from_numpy(camera, "cpu"), tli),
             TL._light_volumes(tst, tli, _port(cfg)))
 
 

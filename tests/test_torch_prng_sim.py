@@ -34,7 +34,7 @@ POS_TOL = 1e-5
 
 
 def _key(seed):
-    return jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    return jax.random.PRNGKey(seed), prng.PRNGKey(seed, "cpu")
 
 
 def _u32(a):
@@ -116,7 +116,7 @@ def test_spawn_attrs_match():
 def test_init_scene_matches(init):
     cfg = _tiny_c3(init=init)
     ref = jax.device_get(init_scene(cfg))
-    got = state_to_numpy(tinit(_port(cfg)))
+    got = state_to_numpy(tinit(_port(cfg), "cpu"))
     _cmp_particles(ref.particles, got.particles)
     np.testing.assert_array_equal(np.asarray(ref.volumes, np.float32),
                                   np.asarray(got.volumes, np.float32))
@@ -129,7 +129,7 @@ def test_sim_step_three_frames(init):
     curl-forced advection (random pool)."""
     cfg = _tiny_c3(init=init)
     s = init_scene(cfg)
-    st = state_from_numpy(jax.device_get(s))
+    st = state_from_numpy(jax.device_get(s), "cpu")
     step = jax.jit(jstep, static_argnames=("cfg",))
     tcfg = _port(cfg)
     spawned = 0

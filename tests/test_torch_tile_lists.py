@@ -1,5 +1,6 @@
-"""Kernel B's per-tile particle lists and the launch planners of kernels A
-and B (volq_torch/render/kernel.py), on the CPU.
+"""Kernel B's per-tile particle lists, kernel D's per-tile lists of
+composite positions, and the launch planners of kernels A-D
+(volq_torch/render/kernel.py), on the CPU.
 
 * ``tile_lists_plain`` (the plain version of the lists B's launch builds)
   against a brute-force scan of every tile and particle, on the fused
@@ -9,12 +10,20 @@ and B (volq_torch/render/kernel.py), on the CPU.
   shared-memory load of the kernel's bitmap window.  Every list is in
   ascending (depth) order, exactly.  ``tile_fill`` on the CPU: the plain
   lists in the fill kernel's layout, the first ``capt`` of each kept.
-* ``march_plan`` and ``composite_plan`` for every preset's shapes (c1
-  under the warp engine at march rect 128, c2, c3, c4, c4 per-step lit,
-  c5, and each in fp32): A's plans fit the 227 KB of shared memory a
-  block may opt into, in the staged arm where a slab stage fits, else
-  the global arm; B's tile grid covers the canvas and its list slots
-  stay within the int32 scratch.
+* ``chunk_lists_plain`` (the plain version of D's lists) against a
+  brute-force scan: each tile's composite positions, in composite order,
+  under a given ``order`` and without one, on made-up origins and on the
+  unfused inputs of a small state (one chunk through ``order``, and
+  megachunks); ``chunk_fill`` on the CPU in the fill kernel's layout;
+  ``_check_words``, which refuses bf16 images whose edge values' aligned
+  4-byte words (what kernel D copies) reach outside their storage.
+* ``march_plan``, ``images_plan``, ``composite_plan`` and ``chunk_plan``
+  for every preset's shapes (c1 under the warp engine at march rect 128,
+  c2, c3, c4, c4 per-step lit, c5, and each in fp32): A's and C's plans
+  fit the 227 KB of shared memory a block may opt into, in the staged
+  arm where a slab stage fits, else the global arm, and C keeps A's
+  block width, ring and blocks an SM; B's and D's tile grids cover their
+  canvases and their list slots stay within the int32 scratch.
 """
 import dataclasses
 
@@ -245,6 +254,40 @@ def test_launch_plans_fit_every_preset(preset, fp32):
     assert plan.G == (g_min if mp.N >= K.N_SM
                       else (g_min + K.MARCH_BLOCK // mp.RM) // 2)
     check_composite_plan(cp)
+    # kernel C: A's block width and ring, a band of y-pass rows (none at
+    # RM == RP) whose buffers keep C's shared bytes within the SM share of
+    # A's blocks (or A's own)
+    cplan = K.images_plan(mp, itemsize)
+    assert (cplan.G, cplan.stages) == (plan.G, plan.stages)
+    assert cplan.smem == K.images_smem(mp, cplan.stages, itemsize,
+                                       cplan.band)
+    assert plan.smem <= cplan.smem <= K.SMEM_OPTIN
+    assert cplan.smem <= max(room, plan.smem)
+    if mp.RM == mp.RP:
+        assert cplan.band == 0
+    else:
+        assert 1 <= cplan.band <= mp.RP
+        more = K.images_smem(mp, cplan.stages, itemsize, cplan.band + 1)
+        assert cplan.band == mp.RP or more > max(room, plan.smem) \
+            or -(-mp.RP // (cplan.band + 1)) == -(-mp.RP // cplan.band)
+    # kernel D: the unfused canvas and one megachunk
+    _, _, Hc, Wc = K._canvas_dims(cfg, cfg.render.height)
+    n = tw.mega_chunk(cfg, cfg.n_particles)
+    check_chunk_plan(K.ChunkParams(n=n, RP=mp.RP, Hc=Hc, Wc=Wc))
+
+
+def check_chunk_plan(p):
+    dplan = K.chunk_plan(p)
+    assert dplan.ntx * K.TILE_W >= p.Wc > (dplan.ntx - 1) * K.TILE_W
+    assert dplan.nty * K.TILE_H >= p.Hc > (dplan.nty - 1) * K.TILE_H
+    assert min(p.n, 256) <= dplan.capt <= p.n
+    assert 2 * dplan.ntx * dplan.nty * dplan.capt < 2 ** 31
+    # 8x the average list of rects that each meet the most tiles an RP x
+    # RP rect can
+    per = (-(-(p.RP - 1) // K.TILE_H) + 1) * (-(-(p.RP - 1) // K.TILE_W) + 1)
+    nt = dplan.ntx * dplan.nty
+    assert dplan.capt == min(p.n, max(256, -(-8 * p.n * per // nt)))
+    return dplan
 
 
 def check_composite_plan(cp):
@@ -291,3 +334,129 @@ def test_march_plan_arms():
     with pytest.raises(ValueError):
         K.march_plan(K.march_params(8, 4, 8, 8, 144, 144, 6, True, 64, 64),
                      4)
+
+
+# --------------------------------------------------------------------------
+# kernel D's lists: composite positions, ascending
+
+def brute_chunk_lists(oy, ox, order, RP, Hc, Wc):
+    """Tile by tile, composite position by position: the rect of image
+    order[q] (or q) against the tile."""
+    ntx, nty = -(-Wc // K.TILE_W), -(-Hc // K.TILE_H)
+    y0s, x0s = oy.tolist(), ox.tolist()
+    ks = list(range(len(y0s))) if order is None else order.tolist()
+    out = []
+    for ty in range(nty):
+        for tx in range(ntx):
+            ty0, tx0 = ty * K.TILE_H, tx * K.TILE_W
+            out.append([q for q, k in enumerate(ks)
+                        if y0s[k] < ty0 + K.TILE_H and y0s[k] + RP > ty0
+                        and x0s[k] < tx0 + K.TILE_W and x0s[k] + RP > tx0])
+    return out
+
+
+def check_chunk_lists(oy, ox, order, p):
+    offs, lists = K.chunk_lists_plain(oy, ox, order, p)
+    want = brute_chunk_lists(oy, ox, order, p.RP, p.Hc, p.Wc)
+    o, got = offs.tolist(), lists.tolist()
+    assert offs.dtype == lists.dtype == torch.int32
+    assert len(o) == len(want) + 1 and o[-1] == len(got)
+    for t, w in enumerate(want):
+        assert got[o[t]:o[t + 1]] == w, t
+    counts, slots = K.chunk_fill(oy, ox, order, p)
+    plan = K.chunk_plan(p)
+    assert counts.tolist() == [len(w) for w in want]
+    assert slots.shape == (len(want), plan.capt)
+    for t, w in enumerate(want):
+        assert slots[t, :min(len(w), plan.capt)].tolist() == w[:plan.capt]
+    return want
+
+
+@pytest.mark.parametrize("ordered", [True, False], ids=["order", "stored"])
+@pytest.mark.parametrize("RP", [12, 48, 100])
+def test_chunk_lists_match_brute_force(RP, ordered):
+    """Made-up origins inside the canvas (as the caller clips them), under
+    a random composite order and as stored: each tile's list is its
+    composite positions, ascending."""
+    g = torch.Generator().manual_seed(RP)
+    n, Hc, Wc = 300, 150, 400
+    oy = torch.randint(0, Hc - RP + 1, (n,), generator=g).to(torch.int32)
+    ox = torch.randint(0, Wc - RP + 1, (n,), generator=g).to(torch.int32)
+    order = torch.randperm(n, generator=g).to(torch.int32) if ordered \
+        else None
+    p = K.ChunkParams(n=n, RP=RP, Hc=Hc, Wc=Wc)
+    want = check_chunk_lists(oy, ox, order, p)
+    assert sum(map(len, want)) > n          # rects span several tiles
+    if ordered:   # the positions, not the image indices, are listed
+        stored = brute_chunk_lists(oy, ox, None, RP, Hc, Wc)
+        assert want != stored
+
+
+@pytest.mark.parametrize("mega", [0, 8], ids=["one-chunk", "mega8"])
+def test_chunk_lists_of_unfused_inputs(mega):
+    """The unfused inputs of a frame: one chunk composited through
+    ``order`` (every particle, marched as stored), and depth-ordered
+    megachunks of 8 (no order)."""
+    cfg = _scene(**PRESET_FLAGS["c4"], warp_fused=False, warp_mega=mega)
+    state, camera, light = loop.setup(cfg, device="cpu")
+    lv = loop.cached_light_volumes(state, light, cfg)
+    bank, lbank = tw.bake_slab_banks(state.volumes, lv, cfg)
+    chunks, _ = tw.unfused_inputs(state.particles, camera, light, cfg, bank,
+                                  0, cfg.render.height, lbank)
+    assert len(chunks) == (1 if not mega else cfg.n_particles // 8)
+    for _, (oy, ox, order, p) in chunks:
+        assert (order is None) == bool(mega)
+        check_chunk_lists(oy, ox, order, p)
+
+
+def test_chunk_fill_keeps_the_first_capt_slots():
+    """A chunk whose every rect covers one tile, past the plan's slots:
+    the tile counts its whole list and keeps capt of it."""
+    n, RP, Hc, Wc = 400, 40, 64, 256
+    g = torch.Generator().manual_seed(1)
+    oy = torch.randint(0, 17, (n,), generator=g).to(torch.int32)
+    ox = torch.randint(25, 65, (n,), generator=g).to(torch.int32)
+    order = torch.randperm(n, generator=g).to(torch.int32)
+    p = K.ChunkParams(n=n, RP=RP, Hc=Hc, Wc=Wc)
+    plan = K.CompositePlan(ntx=4, nty=4, capt=5)
+    counts, slots = K.chunk_fill(oy, ox, order, p, plan)
+    t = 1 * plan.ntx + 1
+    assert int(counts[t]) == n
+    assert slots[t].tolist() == list(range(5))
+
+
+@pytest.mark.parametrize("n", [1, 64, 2048, 10_000_000])
+def test_chunk_plan_list_slots(n):
+    """D's list slots on c4's unfused canvas: 8x the average list, at
+    least 256 (at most n); chunks enough to overflow the int32 scratch
+    raise."""
+    p = K.ChunkParams(n=n, RP=96, Hc=1280, Wc=2272)
+    if n > 1_000_000:
+        with pytest.raises(ValueError):
+            K.chunk_plan(p)
+        return
+    check_chunk_plan(p)
+
+
+
+@pytest.mark.parametrize("offset,count,start,stop,ok", [
+    (0, 36, 0, None, True), (0, 36, 1, -1, True), (0, 33, 0, -1, True),
+    (0, 33, 0, None, False), (0, 33, 1, None, False), (2, 33, 1, None, True),
+    (2, 33, 0, -1, False)],
+    ids=["whole", "inner", "to-even", "to-odd-end", "from-1-odd-end",
+         "start-2mod4-from-1", "start-2mod4"])
+def test_chunk_word_check(offset, count, start, stop, ok):
+    """bf16 images as views of a storage of ``count`` values that starts
+    ``offset`` bytes into a 4-byte-aligned buffer: a view whose first or
+    last value's aligned 4-byte word reaches outside the storage raises;
+    fp32 views never do."""
+    for dt in (torch.bfloat16, torch.float32):
+        buf = torch.frombuffer(bytearray(offset + 4 * count), dtype=dt,
+                               offset=offset, count=count)
+        assert buf.untyped_storage().nbytes() == count * buf.element_size()
+        view = buf[start:count if stop is None else stop]
+        if ok or dt == torch.float32:
+            K._check_words(view)
+        else:
+            with pytest.raises(ValueError):
+                K._check_words(view)

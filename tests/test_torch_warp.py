@@ -43,8 +43,9 @@ def _port(cfg):
 
 def _scene(cfg):
     state, camera, light = setup(cfg)
-    return (state, camera, light, state_from_numpy(jax.device_get(state)),
-            camera_from_numpy(camera), light_from_numpy(light))
+    return (state, camera, light,
+            state_from_numpy(jax.device_get(state), "cpu"),
+            camera_from_numpy(camera, "cpu"), light_from_numpy(light, "cpu"))
 
 
 def _tiny_cameras(tiny_cfg):

@@ -54,9 +54,10 @@ def _scene(cfg):
     """(JAX state, camera, light), the same converted for the port, and
     the port's own light bake (None when unlit)."""
     state, camera, light = setup(cfg)
-    tst = state_from_numpy(jax.device_get(state))
-    tli = light_from_numpy(light)
-    return ((state, camera, light), (tst, camera_from_numpy(camera), tli),
+    tst = state_from_numpy(jax.device_get(state), "cpu")
+    tli = light_from_numpy(light, "cpu")
+    return ((state, camera, light),
+            (tst, camera_from_numpy(camera, "cpu"), tli),
             TL._light_volumes(tst, tli, _port(cfg)))
 
 
@@ -89,7 +90,7 @@ def test_c4_fused_matches_jax_and_oracle(tiny_lit_cfg, fp32):
     for k in STATS:
         assert int(stats[k]) == int(ref_stats[k]), k
     # both packages can render from one bake: the reference's, converted
-    img_c, _ = _render(t, cfg, light_volumes_from_numpy(jlv))
+    img_c, _ = _render(t, cfg, light_volumes_from_numpy(jlv, "cpu"))
     assert np.abs(img_c.numpy() - ref).max() <= tol_jax
     # the light does something: the shadowed image is darker than unlit
     img_u, _ = _render(t, cfg, None)

@@ -48,9 +48,10 @@ def _port(cfg):
 
 def _scene(cfg):
     state, camera, light = setup(cfg)
-    tst = state_from_numpy(jax.device_get(state))
-    tli = light_from_numpy(light)
-    return ((state, camera, light), (tst, camera_from_numpy(camera), tli),
+    tst = state_from_numpy(jax.device_get(state), "cpu")
+    tli = light_from_numpy(light, "cpu")
+    return ((state, camera, light),
+            (tst, camera_from_numpy(camera, "cpu"), tli),
             TL._light_volumes(tst, tli, _port(cfg)))
 
 
@@ -299,7 +300,7 @@ def test_animated_frames_match_reference():
     b = got.volumes.astype(np.float32)
     assert np.abs(a - b).max() <= 2.0 ** -8
     # a converted state carries the time the bake reads
-    conv = state_from_numpy(ref)
+    conv = state_from_numpy(ref, "cpu")
     assert conv.time.dtype == torch.float32
     assert float(conv.time) == float(np.asarray(ref.time))
 

@@ -77,9 +77,9 @@ def _check(cfg):
     if not cfg.render.warp_march_rect:
         oracle = render_warp_oracle(st.particles, st.volumes, cam, li, cfg,
                                     light_volumes=lv)
-    tst = state_from_numpy(jax.device_get(st))
-    img, stats = TL.render_only(tst, camera_from_numpy(cam),
-                                light_from_numpy(li), _port(cfg))
+    tst = state_from_numpy(jax.device_get(st), "cpu")
+    img, stats = TL.render_only(tst, camera_from_numpy(cam, "cpu"),
+                                light_from_numpy(li, "cpu"), _port(cfg))
     img = img.numpy().astype(np.float64)
     assert img[..., 3].max() > 0.05
     tol_jax, tol_oracle = ((1e-4, 1e-3) if cfg.render.warp_fp32
@@ -138,8 +138,8 @@ def test_ortho_grid_geometry_matches(tiny_cfg):
                                         None, cfg)
     ref, ref_stats = jax.jit(jw._grid_geometry, static_argnums=(2, 3, 4))(
         jp, jc, cfg, 0, 64)
-    tst = state_from_numpy(jax.device_get(st))
-    tp, tc = tw.permute_for_march(tst.particles, camera_from_numpy(cam),
+    tst = state_from_numpy(jax.device_get(st), "cpu")
+    tp, tc = tw.permute_for_march(tst.particles, camera_from_numpy(cam, "cpu"),
                                   _port(cfg))
     got, stats = tw._grid_geometry(tp, tc, _port(cfg), 0, 64)
     for k in ("sx0", "sy0", "valid", "szn"):

@@ -65,9 +65,9 @@ def _render_both(cfg, lit=False):
             axis=dominant_axis(cfg.light.direction)))
     oracle = render_warp_oracle(st.particles, st.volumes, cam, li, cfg,
                                 light_volumes=lv)
-    tst = state_from_numpy(jax.device_get(st))
-    img, stats = TL.render_only(tst, camera_from_numpy(cam),
-                                light_from_numpy(li), _port(cfg))
+    tst = state_from_numpy(jax.device_get(st), "cpu")
+    img, stats = TL.render_only(tst, camera_from_numpy(cam, "cpu"),
+                                light_from_numpy(li, "cpu"), _port(cfg))
     return (img.numpy().astype(np.float64), np.asarray(ref, np.float64),
             oracle, stats, ref_stats)
 

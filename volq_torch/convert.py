@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from volq_torch.core.device import resolve_device
 from volq_torch.core.types import Camera, Light, Particles, SceneState
 
 
@@ -30,10 +31,11 @@ def _to_numpy(t):
     return t.numpy()
 
 
-def state_from_numpy(d, device="cpu") -> SceneState:
+def state_from_numpy(d, device=None) -> SceneState:
     """``d.volumes`` may be the bf16 bank or its fp32 widening (what a
     checkpoint stores): fp32 is narrowed to bf16 on the host, before the
-    upload."""
+    upload to ``device`` (None: the card; raises without one)."""
+    device = resolve_device(device)
     p = d.particles
     parts = Particles(*(_to_torch(getattr(p, f), device)
                         for f in Particles._fields))
@@ -68,19 +70,24 @@ def state_to_numpy(state: SceneState, bank_fp32: bool = False) -> SceneState:
         base_key=_to_numpy(state.base_key).astype(np.uint32))
 
 
-def light_volumes_from_numpy(lv, device="cpu") -> torch.Tensor:
+def light_volumes_from_numpy(lv, device=None) -> torch.Tensor:
     """The baked light optical-depth bank [M, V, V, V] (what
     ``volq.volume.lightbake.bake_light_volumes`` returns, as numpy) ->
-    the port's fp32 tensor, so both packages can render from one bake."""
-    return _to_torch(np.asarray(lv, np.float32), device)
+    the port's fp32 tensor on ``device`` (None: the card), so both
+    packages can render from one bake."""
+    return _to_torch(np.asarray(lv, np.float32), resolve_device(device))
 
 
-def camera_from_numpy(c, device="cpu") -> Camera:
+def camera_from_numpy(c, device=None) -> Camera:
+    """A numpy camera on ``device`` (None: the card)."""
+    device = resolve_device(device)
     return Camera(*(_to_torch(np.asarray(getattr(c, f), np.float32), device)
                     for f in Camera._fields))
 
 
-def light_from_numpy(lt, device="cpu") -> Light:
+def light_from_numpy(lt, device=None) -> Light:
+    """A numpy light on ``device`` (None: the card)."""
+    device = resolve_device(device)
     return Light(*(_to_torch(np.asarray(getattr(lt, f), np.float32), device)
                    for f in Light._fields))
 

@@ -39,16 +39,10 @@
 // and carried each particle's canvas window through double-buffered DMAs
 // with hazard flags.  GPU blocks run in no order, so the order moves inside
 // the block: one block per 16 x 64 canvas tile, the tile held in registers,
-// walking in depth order only the particles whose box meets it.  Those
-// per-tile lists are built in the launch: a kernel over the particles (a
-// warp each, its lanes over the tiles) appends each to the slots of every
-// tile its box meets (a fixed number of slots a tile, sized on the host
-// from the tiles a box can meet, kernel.py:composite_plan; atomics, so in
-// no order), and each tile's block first puts its list in ascending order
-// -- ranking a short list, or through a bitmap of particle indices in
-// shared memory (windows of indices, so any N and any length keep the
-// order).  A tile whose list did not fit its slots has every particle
-// tested instead; a tile no particle meets returns at once.  Each warp then
+// walking in depth order only the particles whose box meets it: the
+// per-tile lists of tile_lists.cuh, built in the launch (the fill, then
+// each tile's block puts its list in depth order; a tile whose list did not
+// fit its slots has every particle tested instead).  Each warp then
 // walks the list alone over its 4 x 32 sub-tile, taking the particles whose
 // box meets it 32 list entries at a time, and reads their plane taps from
 // device memory (L2); the warps of a block do not wait for each other.
@@ -71,23 +65,12 @@
 // PyTorch version.
 
 #include "warp_common.cuh"
+#include "tile_lists.cuh"
 
 struct CompositeParams {
   int N, RM, Hc, Wc, lit, ilv;
   float gscale;   // canvas offset -> march cells
 };
-
-// mirrors CompositePlan in volq_torch/render/kernel.py: the tile grid and
-// the list slots of a tile (capt)
-struct CompositePlan {
-  int ntx, nty, capt;
-};
-
-constexpr int kTileW = 64, kTileH = 16, kRowsPerThread = 4;
-constexpr int kThreads = kTileW * (kTileH / kRowsPerThread);
-constexpr int kChunk = 1024;          // a list held in shared memory
-constexpr int kRankMax = 256;         // lists ordered by ranking
-constexpr int kBits = 65536;          // the list order's bitmap window
 
 // unrounded hat weight of tap k at position g, 0 outside [0, n)
 __device__ __forceinline__ float hat_raw(float g, int k, int n) {
@@ -95,111 +78,16 @@ __device__ __forceinline__ float hat_raw(float g, int k, int n) {
   return fmaxf(0.f, 1.f - fabsf(g - (float)k));
 }
 
-__device__ __forceinline__ int floor_div(int a, int b) {
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
-
-// Each valid particle with a non-empty box appends its index to the slots
-// of every tile its box meets (tile t: raw[t * capt, ...), cnt[t] entries
-// wanted, the first capt kept), in no order.  A warp per particle, its
-// lanes over the tiles, so that a large box's appends run side by side.
-__global__ void tile_fill_kernel(const int4* __restrict__ box,
-                                 const int* __restrict__ valid, int N,
-                                 CompositePlan tp, int* __restrict__ cnt,
-                                 int* __restrict__ raw) {
-  const int k = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (k >= N || !valid[k]) return;
-  const int4 b = box[k];   // (y0, y1, x0, x1)
-  if (b.y <= b.x || b.w <= b.z) return;
-  const int y0 = max(floor_div(b.x, kTileH), 0);
-  const int y1 = min(floor_div(b.y - 1, kTileH), tp.nty - 1);
-  const int x0 = max(floor_div(b.z, kTileW), 0);
-  const int x1 = min(floor_div(b.w - 1, kTileW), tp.ntx - 1);
-  const int nx = x1 - x0 + 1, ntiles = (y1 - y0 + 1) * nx;
-  for (int q = lane; q < ntiles && nx > 0; q += 32) {
-    const int t = (y0 + q / nx) * tp.ntx + x0 + q % nx;
-    const int at = atomicAdd(&cnt[t], 1);
-    if (at < tp.capt) raw[(size_t)t * tp.capt + at] = k;
+// the fill's rects: a valid particle's placement box (y0, y1, x0, x1)
+struct BoxRects {
+  const int4* box;
+  const int* valid;
+  __device__ __forceinline__ bool operator()(int k, int4* b) const {
+    if (!valid[k]) return false;
+    *b = box[k];
+    return true;
   }
-}
-
-// exclusive prefix sum over the block's nthreads (a multiple of 32) threads,
-// every one of which calls it; *total gets the block's sum
-__device__ __forceinline__ int block_scan(int v, int* total, int tid,
-                                          int nthreads) {
-  __shared__ int warp_sum[32];
-  const int lane = tid & 31, w = tid >> 5, nw = nthreads >> 5;
-  int x = v;
-  #pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sum[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    int s = lane < nw ? warp_sum[lane] : 0;
-    #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += y;
-    }
-    warp_sum[lane] = s;   // inclusive over warps
-  }
-  __syncthreads();
-  const int before = (w ? warp_sum[w - 1] : 0) + x - v;
-  *total = warp_sum[nw - 1];
-  __syncthreads();
-  return before;
-}
-
-// A tile's list seg[0, n) of distinct particle indices below N, in no
-// order -> ascending in out[0, n): per window of W indices (``bits``: W / 32
-// words of shared memory) a bitmap, compacted in order with a block scan.
-// Every thread of the block calls it; it ends with a barrier.
-__device__ void order_list(const int* seg, int n, int N, unsigned* bits,
-                           int W, int* out, int tid, int nthreads) {
-  int done = 0;
-  for (int base = 0; base < N && done < n; base += W) {
-    const int nw = (min(W, N - base) + 31) / 32;
-    for (int w = tid; w < nw; w += nthreads) bits[w] = 0u;
-    __syncthreads();
-    for (int q = tid; q < n; q += nthreads) {
-      const int k = seg[q] - base;
-      if (k >= 0 && k < W) atomicOr(&bits[k >> 5], 1u << (k & 31));
-    }
-    __syncthreads();
-    const int per = (nw + nthreads - 1) / nthreads;
-    const int w0 = min(tid * per, nw), w1 = min(w0 + per, nw);
-    int mine = 0;
-    for (int w = w0; w < w1; ++w) mine += __popc(bits[w]);
-    int total;
-    int pos = done + block_scan(mine, &total, tid, nthreads);
-    for (int w = w0; w < w1; ++w)
-      for (unsigned m = bits[w]; m; m &= m - 1u)
-        out[pos++] = base + 32 * w + __ffs(m) - 1;
-    done += total;
-    __syncthreads();
-  }
-}
-
-// A short list (n <= kRankMax, every index distinct) in order the cheap
-// way: each thread ranks its entries against all n in shared memory
-// (``keys``: n ints).  Every thread of the block calls it; it ends with a
-// barrier.
-__device__ void rank_list(const int* seg, int n, int* keys, int* out,
-                          int tid, int nthreads) {
-  for (int q = tid; q < n; q += nthreads) keys[q] = seg[q];
-  __syncthreads();
-  for (int q = tid; q < n; q += nthreads) {
-    const int k = keys[q];
-    int rank = 0;
-    for (int o = 0; o < n; ++o) rank += keys[o] < k;
-    out[rank] = k;
-  }
-  __syncthreads();
-}
+};
 
 // Everything a launch of the composite takes, as one kernel parameter read
 // in place (__grid_constant__), so that it costs no registers.
@@ -214,16 +102,7 @@ struct CompArgs {
   const int* valid;
   int* scratch;   // cnt [ntiles] | raw [ntiles, capt] | lists [ntiles, capt]
   CompositeParams p;
-  CompositePlan tp;
-};
-
-// One warp's walk over a tile's depth-ordered list: the warp owns a
-// kRowsPerThread x 32 sub-tile (lane = column, its rows a lane's) and
-// takes only the particles whose box meets it; warps synchronise only
-// within themselves, so a warp that a particle misses does not wait for it.
-struct Warp {
-  int wy0, wx0, X, lane;
-  bool colin;
+  TilePlan tp;
 };
 
 // what a warp needs of a listed particle to test it and composite it
@@ -249,39 +128,12 @@ __device__ __forceinline__ Entry load_entry(const CompArgs& a,
   return e;
 }
 
-// the sub-tile's cells inside box b: rows [*ya, *yb], columns [*xa, *xb]
-__device__ __forceinline__ bool sub_cells(const CompArgs& a, const Warp& w,
-                                          const int4& b, int* ya, int* yb,
-                                          int* xa, int* xb) {
-  *ya = max(w.wy0, b.x);
-  *yb = min(min(w.wy0 + kRowsPerThread, b.y), a.p.Hc) - 1;
-  *xa = max(w.wx0, b.z);
-  *xb = min(min(w.wx0 + 32, b.w), a.p.Wc) - 1;
-  return *ya <= *yb && *xa <= *xb;
-}
-
 __device__ __forceinline__ unsigned meets(const CompArgs& a, const Warp& w,
                                           const Entry& e) {
   int ya, yb, xa, xb;
   return __ballot_sync(0xffffffffu,
-                       e.k >= 0 && sub_cells(a, w, e.b, &ya, &yb, &xa, &xb));
-}
-
-// rnd(wy0 * rnd(P[k0, m]) + wy1 * rnd(P[k0 + 1, m])) over a plane whose rows
-// are rs apart (warp_common.cuh's up_y, its address formed once; taps
-// outside the plane weigh 0 and are not read)
-template <typename PT>
-__device__ __forceinline__ float up_y_rs(const float* P, int rs, int RM,
-                                         int k0, float wy0, float wy1,
-                                         int m) {
-  float s = 0.f;
-  if (m >= 0 && m < RM) {
-    const int at = k0 * rs + m;
-    if (k0 >= 0 && k0 < RM) s = __fmul_rn(wy0, rnd<PT>(P[at]));
-    if (k0 + 1 >= 0 && k0 + 1 < RM)
-      s = __fadd_rn(s, __fmul_rn(wy1, rnd<PT>(P[at + rs])));
-  }
-  return rnd<PT>(s);
+                       e.k >= 0 && sub_cells(w, e.b, a.p.Hc, a.p.Wc, &ya,
+                                             &yb, &xa, &xb));
 }
 
 // The OVER of one particle onto this lane's cells: box b, placement origin
@@ -327,12 +179,12 @@ __device__ __forceinline__ void place(const CompArgs& a, const Warp& w,
     float wy0, wy1;
     taps<PT>(gy, RM, &k0, &wy0, &wy1);
     // y pass at the two x taps: t[m] = rnd(wy0*P[k0, m] + wy1*P[k0+1, m])
-    const float t2a = up_y_rs<PT>(P2p, rs, RM, k0, wy0, wy1, m0);
-    const float t2b = up_y_rs<PT>(P2p, rs, RM, k0, wy0, wy1, m0 + 1);
+    const float t2a = up_y<PT>(P2p, rs, RM, k0, wy0, wy1, m0);
+    const float t2b = up_y<PT>(P2p, rs, RM, k0, wy0, wy1, m0 + 1);
     float t1a = 0.f, t1b = 0.f;
     if (LIT) {
-      t1a = up_y_rs<PT>(P1p, rs, RM, k0, wy0, wy1, m0);
-      t1b = up_y_rs<PT>(P1p, rs, RM, k0, wy0, wy1, m0 + 1);
+      t1a = up_y<PT>(P1p, rs, RM, k0, wy0, wy1, m0);
+      t1b = up_y<PT>(P1p, rs, RM, k0, wy0, wy1, m0 + 1);
     }
     const float Tw = T[r];
     if (ILV) {
@@ -421,14 +273,13 @@ warp_composite_kernel(const __grid_constant__ CompArgs a) {
   __shared__ int list[kChunk];
   __shared__ unsigned bits[kBits / 32];   // the list order's room
   const CompositeParams& p = a.p;
-  const CompositePlan& tp = a.tp;
+  const TilePlan& tp = a.tp;
   CT* canvas = static_cast<CT*>(a.canvas);
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kTileW + tx;
   const int ty0 = blockIdx.y * kTileH, tx0 = blockIdx.x * kTileW;
   const int X = tx0 + tx, Ybase = ty0 + ty * kRowsPerThread;
   const size_t plane = (size_t)p.Hc * p.Wc;
   const bool colin = X < p.Wc;
-  const int nt = tp.ntx * tp.nty;
   const int t = blockIdx.y * tp.ntx + blockIdx.x, n = a.scratch[t];
   if (n == 0) return;   // no particle meets the tile: its cells stay
 
@@ -444,23 +295,12 @@ warp_composite_kernel(const __grid_constant__ CompArgs a) {
     T[r] = in ? ldf<CT>(canvas + 3 * plane + o) : 1.f;
   }
 
-  // this tile's list, in depth order: in shared memory, or (longer than
-  // kChunk) in its slots of ``lists``.  A list that did not fit its slots:
-  // every particle, tested by each warp
-  const size_t at = (size_t)t * tp.capt;
-  const int* raw = a.scratch + nt;
-  int* ordered =
-      n <= kChunk ? list : a.scratch + nt + (size_t)nt * tp.capt + at;
-  if (n <= tp.capt) {
-    if (n <= kRankMax)
-      rank_list(raw + at, n, reinterpret_cast<int*>(bits), ordered, tid,
-                kThreads);
-    else
-      order_list(raw + at, n, p.N, bits, kBits, ordered, tid, kThreads);
-  }
+  // this tile's list, in depth order (null: it did not fit its slots, and
+  // each warp tests every particle)
+  const int* ordered =
+      tile_list(a.scratch, t, n, p.N, tp, list, bits, kBits, tid);
   const Warp w{Ybase, tx0 + (tx & 32), X, tx & 31, colin};
-  walk<CT, PT, LIT, ILV>(a, w, n <= tp.capt ? ordered : nullptr,
-                         n <= tp.capt ? n : p.N, C, T);
+  walk<CT, PT, LIT, ILV>(a, w, ordered, ordered ? n : p.N, C, T);
 
   #pragma unroll
   for (int r = 0; r < kRowsPerThread; ++r) {
@@ -473,22 +313,8 @@ warp_composite_kernel(const __grid_constant__ CompArgs a) {
   }
 }
 
-// scratch of a launch: cnt [ntiles] (zeroed here), raw and lists [ntiles,
-// capt] each; the memset and the fill kernel
-static int fill_lists(const int* box, const int* valid, int N,
-                      CompositePlan tp, int* scratch, cudaStream_t st) {
-  const int nt = tp.ntx * tp.nty;
-  cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)nt * sizeof(int), st);
-  if (e != cudaSuccess) return (int)e;
-  if (N)
-    tile_fill_kernel<<<(N + 7) / 8, 256, 0, st>>>(
-        (const int4*)box, valid, N, tp, scratch, scratch + nt);
-  return (int)cudaGetLastError();
-}
-
-static bool bad_plan(const CompositeParams& p, const CompositePlan& tp) {
-  return tp.ntx != (p.Wc + kTileW - 1) / kTileW ||
-         tp.nty != (p.Hc + kTileH - 1) / kTileH || tp.capt < 0;
+static bool bad_plan(const CompositeParams& p, const TilePlan& tp) {
+  return tile_plan_bad(p.Hc, p.Wc, p.N, tp);
 }
 
 template <typename CT, typename PT, bool LIT, bool ILV>
@@ -513,11 +339,12 @@ static int launch_p(const CompArgs& a, cudaStream_t st) {
 // the per-tile lists' fill alone (the first kernel of warp_composite_launch:
 // tile t's cnt[t] and its first min(cnt[t], capt) slots, in no order)
 extern "C" int warp_composite_fill(const int* box, const int* valid,
-                                   CompositeParams p, CompositePlan tp,
+                                   CompositeParams p, TilePlan tp,
                                    int* scratch, void* stream) {
   if (bad_plan(p, tp) || ((uintptr_t)box & 15))
     return (int)cudaErrorInvalidValue;
-  return fill_lists(box, valid, p.N, tp, scratch, (cudaStream_t)stream);
+  return fill_lists(BoxRects{(const int4*)box, valid}, p.N, tp, scratch,
+                    (cudaStream_t)stream);
 }
 
 // the lists' fill, then the composite: two kernels (and a memset)
@@ -526,12 +353,13 @@ extern "C" int warp_composite_launch(void* canvas, int canvas_bf16,
                                      const float* ayf, const float* axf,
                                      const int* box, const float* cc,
                                      const float* cc2, const int* valid,
-                                     CompositeParams p, CompositePlan tp,
+                                     CompositeParams p, TilePlan tp,
                                      int* scratch, void* stream) {
   if ((p.lit && !cc2) || ((uintptr_t)box & 15) || bad_plan(p, tp))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int e = fill_lists(box, valid, p.N, tp, scratch, st);
+  int e = fill_lists(BoxRects{(const int4*)box, valid}, p.N, tp, scratch,
+                     st);
   if (e) return e;
   const CompArgs a{canvas, pm, ayf, axf, (const int4*)box, cc,
                    p.lit ? cc2 : nullptr, valid, scratch, p, tp};

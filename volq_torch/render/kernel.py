@@ -31,14 +31,16 @@ The unfused pair (``warp_fused=False``):
 A and C take both projections: an orthographic camera
 (``MarchParams.ortho``) is a compile-time mode of their march, as the
 reference's ``persp = False`` branches are of ``march_warp_pallas``.
-B and D do not depend on the projection.  A marches step-major through
-a shared-memory ring of slab stages, in the arm ``march_plan`` picks
-from the shapes (``MarchPlan``); C keeps the ray-major march
-(``csrc/warp_common.cuh:march_fan_exp``).  B builds per-tile particle
-lists in its launch (``tile_fill``; plain version ``tile_lists_plain``),
-orders each tile's list in its block and walks it a warp per sub-tile,
-reading the listed particles' plane taps from device memory; its plan
-(``composite_plan``) sizes the tile grid and the list slots.
+B and D do not depend on the projection.  A and C run one march
+(``csrc/march.cuh``): step-major through a shared-memory ring of slab
+stages, in the arm their plans pick from the shapes (``MarchPlan``:
+``march_plan``; ``images_plan`` adds the rows a band of C's upsample,
+whose buffers alias the ring).  B and D build per-tile lists in their
+launch (``csrc/tile_lists.cuh``: ``tile_fill`` / ``chunk_fill``; plain
+versions ``tile_lists_plain`` / ``chunk_lists_plain``), order each
+tile's list in its block and walk it a warp per sub-tile; their plans
+(``composite_plan`` / ``chunk_plan``) size the tile grid and the list
+slots.
 
 Each wrapper launches its CUDA kernel for tensors on the card (raising
 if it cannot) and runs its plain PyTorch version, ``*_plain``, only for
@@ -282,10 +284,10 @@ def _shift(x, delta, idx, axis: int):
 
 def _march_fan_exp_plain(bank, vidx, pgeom, rx_u, ry_w, camf,
                          p: MarchParams, lbank=None):
-    """The march, fan and exps kernels A and C share (csrc/
-    warp_common.cuh:march_fan_exp), in plain PyTorch with the same
-    arithmetic.  Returns (P1m, P2m [N, RM, RM] fp32 -- P1m is P2m when
-    unlit --, clamp count [1] int32)."""
+    """The march, fan and exps kernels A and C share (csrc/march.cuh:
+    march_particle), in plain PyTorch with the same arithmetic.  Returns
+    (P1m, P2m [N, RM, RM] fp32 -- P1m is P2m when unlit --, clamp count
+    [1] int32)."""
     dev = pgeom.device
     f32 = torch.float32
     N, RM, S = p.N, p.RM, p.S
@@ -497,30 +499,51 @@ MAX_STAGES = 4
 
 
 class MarchPlan(ctypes.Structure):
-    """How kernel A runs a launch (mirrors ``MarchPlan`` in
-    csrc/warp_march.cu): ``G`` column groups (a block of RM * G threads;
-    a thread marches row t % RM at columns t // RM + c * G, at most
+    """How kernel A or C runs a launch (mirrors ``MarchPlan`` in
+    csrc/march.cuh): ``G`` column groups (a block of RM * G threads; a
+    thread marches row t % RM at columns t // RM + c * G, at most
     ``MARCH_CAP``), ``stages`` of the shared-memory slab ring (0: the
     global arm, taps read from device memory), ``smem`` dynamic shared
-    bytes."""
-    _fields_ = [(n, ctypes.c_int) for n in ("G", "stages", "smem")]
+    bytes, ``band`` the output rows a round of C's y pass (0 for A, and
+    for C where RM == RP)."""
+    _fields_ = [(n, ctypes.c_int) for n in ("G", "stages", "smem", "band")]
 
     @property
     def arm(self) -> str:
         return f"staged x{self.stages}" if self.stages else "global"
 
 
-def march_smem(p: MarchParams, stages: int, itemsize: int) -> int:
-    """Dynamic shared bytes of kernel A: the column tables [2, RM] float4,
-    the plane [RM, RM | 1] and rx / ry [2, RM] fp32, plus (staged) the
-    ring of ``stages`` slab stages (per-step lit: density and light slab)
-    and center-lit's light slab."""
+def _march_prefix(p: MarchParams, stages: int, itemsize: int) -> int:
+    """Shared bytes of the march before its plane: (staged) the ring of
+    ``stages`` slab stages (per-step lit: density and light slab) and
+    center-lit's light slab, then the column tables [2, RM] float4."""
     slab = p.VX * p.V * itemsize
-    b = 2 * p.RM * 16 + (p.RM * (p.RM | 1) + 2 * p.RM) * 4
+    b = 2 * p.RM * 16
     if stages:
         b += stages * slab * (2 if p.lit == PERSTEP else 1)
         b += slab if p.lit == CENTER else 0
     return b
+
+
+def _march_tail(p: MarchParams) -> int:
+    """Shared bytes from the plane on: the plane [RM, RM | 1] and rx / ry
+    [2, RM] fp32."""
+    return (p.RM * (p.RM | 1) + 2 * p.RM) * 4
+
+
+def march_smem(p: MarchParams, stages: int, itemsize: int) -> int:
+    """Dynamic shared bytes of kernel A (csrc/march.cuh's layout)."""
+    return _march_prefix(p, stages, itemsize) + _march_tail(p)
+
+
+def images_smem(p: MarchParams, stages: int, itemsize: int,
+                band: int) -> int:
+    """Dynamic shared bytes of kernel C: A's, with the P1 plane [RM, RM |
+    1] (lit) and the y-pass rows [NPL, band, RM] fp32 of its epilogue in
+    place of the ring and column tables, where they are the larger."""
+    npl = 2 if p.lit else 1
+    epi = ((p.RM * (p.RM | 1) if p.lit else 0) + npl * band * p.RM) * 4
+    return max(_march_prefix(p, stages, itemsize), epi) + _march_tail(p)
 
 
 def march_plan(p: MarchParams, itemsize: int,
@@ -539,6 +562,14 @@ def march_plan(p: MarchParams, itemsize: int,
         _march_plan(_key(p), itemsize, bool(aligned)))
 
 
+def _sm_room(RM: int, G: int) -> int:
+    """Shared bytes each block may take and still leave an SM the blocks
+    of RM * G threads it holds at the march's 64 registers a thread (1 KB
+    a block reserved)."""
+    blocks = max(1, 65536 // (RM * G * 64))
+    return min(SMEM_OPTIN, SMEM_SM // blocks - 1024)
+
+
 @functools.lru_cache(maxsize=64)
 def _march_plan(key: bytes, itemsize: int, aligned: bool) -> MarchPlan:
     p = MarchParams.from_buffer_copy(key)
@@ -549,10 +580,7 @@ def _march_plan(key: bytes, itemsize: int, aligned: bool) -> MarchPlan:
     G = (g_min + g_max) // 2 if p.N < N_SM else g_min
     stages = 0
     if aligned and (p.VX * p.V * itemsize) % 16 == 0:
-        # the blocks an SM holds at the kernel's 64 registers a thread, and
-        # their share of its shared memory (1 KB a block reserved)
-        blocks = max(1, 65536 // (RM * G * 64))
-        room = min(SMEM_OPTIN, SMEM_SM // blocks - 1024)
+        room = _sm_room(RM, G)
         fits = [D for D in range(2, min(MAX_STAGES, p.S) + 1)
                 if march_smem(p, D, itemsize) <= SMEM_OPTIN]
         share = [D for D in fits if march_smem(p, D, itemsize) <= room]
@@ -563,9 +591,57 @@ def _march_plan(key: bytes, itemsize: int, aligned: bool) -> MarchPlan:
     return MarchPlan(G=G, stages=stages, smem=smem)
 
 
+def images_plan(p: MarchParams, itemsize: int,
+                aligned: bool = True) -> MarchPlan:
+    """Kernel C's plan for these shapes: kernel A's block width and ring
+    (``march_plan``), and the output rows a band of its y pass: none where
+    RM == RP (the identity), else the most, up to RP and spread evenly
+    over the bands, whose buffers -- the P1 plane and the y-pass rows,
+    aliasing the ring -- keep C's shared bytes within what leaves an SM
+    the blocks A's plan holds (or within A's own, where that is more);
+    failing that, within the 227 KB a block may opt into."""
+    # a copy: the cached plan stays as computed whatever a caller does
+    return MarchPlan.from_buffer_copy(
+        _images_plan(_key(p), itemsize, bool(aligned)))
+
+
+@functools.lru_cache(maxsize=64)
+def _images_plan(key: bytes, itemsize: int, aligned: bool) -> MarchPlan:
+    p = MarchParams.from_buffer_copy(key)
+    a = _march_plan(key, itemsize, aligned)
+    band = 0
+    if p.RM != p.RP:
+        row = (2 if p.lit else 1) * p.RM * 4
+        fixed = _march_tail(p) + (p.RM * (p.RM | 1) * 4 if p.lit else 0)
+        for limit in (max(_sm_room(p.RM, a.G), a.smem), SMEM_OPTIN):
+            band = min(p.RP, (limit - fixed) // row)
+            if band >= 1:
+                break
+        if band < 1:
+            raise ValueError(f"rect {p.RP} at march rect {p.RM}: no y-pass "
+                             "row fits the shared memory")
+        band = -(-p.RP // -(-p.RP // band))
+    smem = images_smem(p, a.stages, itemsize, band)
+    if smem > SMEM_OPTIN:
+        raise ValueError(f"rect {p.RP} at march rect {p.RM} needs {smem} B "
+                         "of shared memory")
+    return MarchPlan(G=a.G, stages=a.stages, smem=smem, band=band)
+
+
 def _key(s: ctypes.Structure) -> bytes:
     """A parameter struct's bytes, as a cache key."""
     return bytes(s)
+
+
+def _kernel_fn(lib: str, name: str, argtypes):
+    """C function ``name`` of kernel library ``lib`` (built at first
+    use), with its argument types set."""
+    from volq_torch._build import load
+    fn = getattr(load(lib), name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return fn
 
 
 def _check_march(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams,
@@ -610,11 +686,7 @@ def warp_march(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams,
     if dev.type != "cuda":
         return warp_march_plain(bank, vidx, pgeom, rx_u, ry_w, camf, p,
                                 lbank)
-    from volq_torch._build import load
-    fn = load("warp_march").warp_march_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = _MARCH_ARGS
+    fn = _kernel_fn("warp_march", "warp_march_launch", _MARCH_ARGS)
     if plan is None:
         aligned = all(t.data_ptr() % 16 == 0 for t in (bank, lbank)
                       if t is not None)
@@ -655,41 +727,51 @@ def composite_params(N: int, RM: int, Hc: int, Wc: int, gscale: float,
                            ilv=int(ilv), gscale=_f32(gscale))
 
 
-TILE_H, TILE_W = 16, 64     # kernel B's canvas tile (csrc/warp_composite.cu)
+# the canvas tile of kernels B and D (csrc/tile_lists.cuh)
+TILE_H, TILE_W = 16, 64
 
 
 class CompositePlan(ctypes.Structure):
-    """How kernel B runs a launch (mirrors ``CompositePlan`` in
-    csrc/warp_composite.cu): the ``ntx`` x ``nty`` grid of TILE_H x TILE_W
+    """How kernel B or D runs a launch (mirrors ``TilePlan`` in
+    csrc/tile_lists.cuh): the ``ntx`` x ``nty`` grid of TILE_H x TILE_W
     tiles and ``capt`` list slots a tile."""
     _fields_ = [(n, ctypes.c_int) for n in ("ntx", "nty", "capt")]
+
+
+def _tile_plan(N: int, Hc: int, Wc: int, ext: int | None) -> CompositePlan:
+    """The tile grid over an [Hc, Wc] canvas and its list slots for N
+    rects of at most ``ext`` x ``ext`` cells (None: unbounded): 8x the
+    list a tile would have on average if every rect met as many tiles as
+    the largest can, at least 256 and at most N."""
+    ntx, nty = -(-Wc // TILE_W), -(-Hc // TILE_H)
+    nt = ntx * nty
+    per = nt
+    if ext is not None:
+        per = min(per, (-(-(ext - 1) // TILE_H) + 1)
+                  * (-(-(ext - 1) // TILE_W) + 1))
+    capt = min(N, max(256, -(-8 * N * per // nt)))
+    if 2 * nt * capt >= 2 ** 31:
+        raise ValueError(f"{N} rects on {nt} tiles need too many list "
+                         "slots")
+    return CompositePlan(ntx=ntx, nty=nty, capt=capt)
 
 
 @functools.lru_cache(maxsize=64)
 def _composite_plan(key: bytes) -> CompositePlan:
     p = CompositeParams.from_buffer_copy(key)
-    ntx, nty = -(-p.Wc // TILE_W), -(-p.Hc // TILE_H)
-    nt = ntx * nty
     g = float(p.gscale)
-    per = nt
+    ext = None
     if g > 0:
         ext = int(np.ceil((p.RM - 1) / g)) + 4 + 2 * int(np.ceil(1 / g))
-        per = min(per, (-(-(ext - 1) // TILE_H) + 1)
-                  * (-(-(ext - 1) // TILE_W) + 1))
-    capt = min(p.N, max(256, -(-8 * p.N * per // nt)))
-    if 2 * nt * capt >= 2 ** 31:
-        raise ValueError(f"{p.N} particles on {nt} tiles need too many "
-                         "list slots")
-    return CompositePlan(ntx=ntx, nty=nty, capt=capt)
+    return _tile_plan(p.N, p.Hc, p.Wc, ext)
 
 
 def composite_plan(p: CompositeParams) -> CompositePlan:
-    """Kernel B's plan for these shapes.  List slots: a tile has 8x the
-    list it would have on average if every box met as many tiles as the
-    largest box can (its placed extent ceil((RM-1)/gscale) + 1, the
-    tent's leak ceil(1/gscale) past each end, the cell canvas's support
-    cell and one of slack), at least 256 and at most N; where a list does
-    not fit, the tile's warps test every particle."""
+    """Kernel B's plan for these shapes (``_tile_plan``), the largest box
+    its placed extent ceil((RM-1)/gscale) + 1, the tent's leak
+    ceil(1/gscale) past each end, the cell canvas's support cell and one
+    of slack; where a list does not fit, the tile's warps test every
+    particle."""
     # a copy: the cached plan stays as computed whatever a caller does
     return CompositePlan.from_buffer_copy(_composite_plan(_key(p)))
 
@@ -736,19 +818,23 @@ _COMPOSITE_ARGS = {
         + [ctypes.c_void_p] * 2}
 
 
-def _composite_fn(name: str):
-    from volq_torch._build import load
-    fn = getattr(load("warp_composite"), name)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = _COMPOSITE_ARGS[name]
-    return fn
+def _slots_plain(offs, lists, plan: CompositePlan):
+    """Plain lists (offs, lists) in the fill kernels' layout: (counts
+    [ntiles], slots [ntiles, capt]) with each tile's first capt entries,
+    in order."""
+    nt = plan.ntx * plan.nty
+    counts = offs[1:] - offs[:-1]
+    slots = torch.zeros((nt, plan.capt), dtype=torch.int32)
+    for t, (a, b) in enumerate(zip(offs[:-1].tolist(), offs[1:].tolist())):
+        n = min(b - a, plan.capt)
+        slots[t, :n] = lists[a:a + n]
+    return counts, slots
 
 
 def _list_scratch(plan: CompositePlan, dev) -> torch.Tensor:
-    """Kernel B's list scratch: the tiles' counts [ntiles], then their
-    slots, as filled [ntiles, capt] and ordered [ntiles, capt] (a list
-    longer than the block holds in shared memory), int32."""
+    """Kernel B's or D's list scratch: the tiles' counts [ntiles], then
+    their slots, as filled [ntiles, capt] and ordered [ntiles, capt] (a
+    list longer than the block holds in shared memory), int32."""
     nt = plan.ntx * plan.nty
     return torch.empty(nt * (1 + 2 * plan.capt), dtype=torch.int32,
                        device=dev)
@@ -770,16 +856,10 @@ def tile_fill(box, valid, p: CompositeParams,
     plan = composite_plan(p) if plan is None else plan
     nt = plan.ntx * plan.nty
     if dev.type != "cuda":
-        offs, lists = tile_lists_plain(box, valid, p.Hc, p.Wc)
-        counts = offs[1:] - offs[:-1]
-        slots = torch.zeros((nt, plan.capt), dtype=torch.int32)
-        for t, (a, b) in enumerate(zip(offs[:-1].tolist(),
-                                       offs[1:].tolist())):
-            n = min(b - a, plan.capt)
-            slots[t, :n] = lists[a:a + n]
-        return counts, slots
+        return _slots_plain(*tile_lists_plain(box, valid, p.Hc, p.Wc), plan)
     scratch = _list_scratch(plan, dev)
-    err = _composite_fn("warp_composite_fill")(
+    err = _kernel_fn("warp_composite", "warp_composite_fill",
+                     _COMPOSITE_ARGS["warp_composite_fill"])(
         _ptr(box), _ptr(valid), p, plan, _ptr(scratch), _stream(dev))
     if err:
         raise RuntimeError(f"tile fill launch failed: CUDA error {err}")
@@ -938,7 +1018,8 @@ def warp_composite(canvas, Pm, ayf, axf, box, cc, valid,
     if plan is None:
         plan = composite_plan(p)
     scratch = _list_scratch(plan, dev)
-    err = _composite_fn("warp_composite_launch")(
+    err = _kernel_fn("warp_composite", "warp_composite_launch",
+                     _COMPOSITE_ARGS["warp_composite_launch"])(
         _ptr(canvas), int(canvas.dtype == torch.bfloat16), _ptr(Pm),
         int(pdt == torch.bfloat16), _ptr(ayf), _ptr(axf), _ptr(box),
         _ptr(cc), _ptr(cc2), _ptr(valid), p, plan, _ptr(scratch),
@@ -972,31 +1053,37 @@ def warp_images_plain(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams,
     return torch.cat([rgb, (1.0 - P2)[:, None]], dim=1).to(wdt), clamp
 
 
+_IMAGES_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] \
+    + [ctypes.c_void_p] * 9 + [MarchParams, MarchPlan, ctypes.c_void_p]
+
+
 def warp_images(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams, alb,
-                lightf, lbank=None):
+                lightf, lbank=None, plan: MarchPlan | None = None):
     """Kernel C: the unfused march -- kernel A's march, fan and exps,
     the RM -> RP hat upsample and the RGB expansion
     ``img[ch] = wdt(alb_ch * (lcol_ch * P1 + amb_ch * P2))``,
     ``img[3] = wdt(1 - P2)``.  Inputs as ``warp_march`` (any particle
     order) plus ``alb`` [N, 3] fp32 and ``lightf`` [6] fp32 (light
-    colour, ambient).  Returns (images [N, 4, RP, RP] in the bank's
-    type, clamp count [1] int32)."""
+    colour, ambient).  ``plan``: the launch's arm and sizes (default
+    ``images_plan`` of these shapes; a plan the kernel cannot take
+    raises).  Returns (images [N, 4, RP, RP] in the bank's type, clamp
+    count [1] int32)."""
     dev = _check_march(bank, vidx, pgeom, rx_u, ry_w, camf, p, lbank)
     _check(alb, "alb", (torch.float32,), (p.N, 3), dev)
     _check(lightf, "lightf", (torch.float32,), (6,), dev)
     if dev.type != "cuda":
         return warp_images_plain(bank, vidx, pgeom, rx_u, ry_w, camf, p,
                                  alb, lightf, lbank)
-    from volq_torch._build import load
-    fn = load("warp_images").warp_images_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] \
-        + [ctypes.c_void_p] * 9 + [MarchParams, ctypes.c_void_p]
+    fn = _kernel_fn("warp_images", "warp_images_launch", _IMAGES_ARGS)
+    if plan is None:
+        aligned = all(t.data_ptr() % 16 == 0 for t in (bank, lbank)
+                      if t is not None)
+        plan = images_plan(p, bank.element_size(), aligned)
     images = torch.empty((p.N, 4, p.RP, p.RP), dtype=bank.dtype, device=dev)
     clamp = torch.zeros((1,), dtype=torch.int32, device=dev)
     err = fn(_ptr(bank), _ptr(lbank), int(bank.dtype == torch.bfloat16),
              _ptr(vidx), _ptr(pgeom), _ptr(rx_u), _ptr(ry_w), _ptr(camf),
-             _ptr(alb), _ptr(lightf), _ptr(images), _ptr(clamp), p,
+             _ptr(alb), _ptr(lightf), _ptr(images), _ptr(clamp), p, plan,
              _stream(dev))
     if err:
         raise RuntimeError(f"warp_images launch failed: CUDA error {err}")
@@ -1013,6 +1100,84 @@ warp_images.launches = 0
 class ChunkParams(ctypes.Structure):
     """Mirrors ``ChunkParams`` in csrc/composite_chunk.cu."""
     _fields_ = [(n, ctypes.c_int) for n in ("n", "RP", "Hc", "Wc")]
+
+
+@functools.lru_cache(maxsize=64)
+def _chunk_plan(key: bytes) -> CompositePlan:
+    p = ChunkParams.from_buffer_copy(key)
+    return _tile_plan(p.n, p.Hc, p.Wc, p.RP)
+
+
+def chunk_plan(p: ChunkParams) -> CompositePlan:
+    """Kernel D's plan for these shapes (``_tile_plan``, the rects RP x
+    RP); where a list does not fit, the tile's warps test every image."""
+    # a copy: the cached plan stays as computed whatever a caller does
+    return CompositePlan.from_buffer_copy(_chunk_plan(_key(p)))
+
+
+def _chunk_rects(oy, ox, order, RP: int):
+    """The RP x RP rect of the image at each composite position:
+    [n, 4] int32 (y0, y1, x0, x1)."""
+    k = torch.arange(oy.shape[0], device=oy.device) if order is None \
+        else order.long()
+    y0, x0 = oy[k], ox[k]
+    return torch.stack([y0, y0 + RP, x0, x0 + RP], 1).to(torch.int32)
+
+
+def chunk_lists_plain(oy, ox, order, p: ChunkParams):
+    """Plain PyTorch version of kernel D's per-tile lists: tile t of the
+    TILE_H x TILE_W grid lists, ascending (composite order), the
+    composite positions q whose image (``order[q]``, or q) has a rect
+    that meets it.  Returns (offs [ntiles + 1] int32, lists [offs[-1]]
+    int32), as ``tile_lists_plain``.  For tests; the card builds and
+    orders the lists inside ``composite_chunk``."""
+    rects = _chunk_rects(oy, ox, order, p.RP)
+    return tile_lists_plain(rects, torch.ones_like(rects[:, 0]), p.Hc,
+                            p.Wc)
+
+
+_CHUNK_ARGS = {
+    "composite_chunk_launch":
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 3 + [ChunkParams, CompositePlan]
+        + [ctypes.c_void_p] * 2,
+    "composite_chunk_fill":
+        [ctypes.c_void_p] * 3 + [ChunkParams, CompositePlan]
+        + [ctypes.c_void_p] * 2}
+
+
+def _check_chunk(oy, ox, order, p: ChunkParams, dev):
+    _check(oy, "oy", (torch.int32,), (p.n,), dev)
+    _check(ox, "ox", (torch.int32,), (p.n,), dev)
+    if order is not None:
+        _check(order, "order", (torch.int32,), (p.n,), dev)
+
+
+def chunk_fill(oy, ox, order, p: ChunkParams,
+               plan: CompositePlan | None = None):
+    """The first kernel of kernel D's launch alone, for tests and for
+    timing that part of D: each composite position appended to the slots
+    of every tile its image's rect meets.  Returns (counts [ntiles]
+    int32, slots [ntiles, capt] int32) as ``tile_fill`` does; on the CPU
+    ``chunk_lists_plain``'s lists in that layout, in order."""
+    dev = oy.device
+    _check_chunk(oy, ox, order, p, dev)
+    plan = chunk_plan(p) if plan is None else plan
+    if dev.type != "cuda":
+        return _slots_plain(*chunk_lists_plain(oy, ox, order, p), plan)
+    scratch = _list_scratch(plan, dev)
+    err = _kernel_fn("composite_chunk", "composite_chunk_fill",
+                     _CHUNK_ARGS["composite_chunk_fill"])(
+        _ptr(oy), _ptr(ox), _ptr(order), p, plan, _ptr(scratch),
+        _stream(dev))
+    if err:
+        raise RuntimeError(f"chunk fill launch failed: CUDA error {err}")
+    chunk_fill.launches += 1
+    nt = plan.ntx * plan.nty
+    return scratch[:nt], scratch[nt:nt * (1 + plan.capt)].view(nt, plan.capt)
+
+
+chunk_fill.launches = 0
 
 
 def composite_chunk_plain(canvas, images, oy, ox, order, p: ChunkParams):
@@ -1035,34 +1200,56 @@ def composite_chunk_plain(canvas, images, oy, ox, order, p: ChunkParams):
     return canvas
 
 
-def composite_chunk(canvas, images, oy, ox, order, p: ChunkParams):
+def _check_words(images):
+    """Raise unless the aligned 4-byte words that hold bf16 ``images``'
+    first and last values lie inside the tensor's storage: kernel D copies
+    each bf16 value as the word that holds it, which for an edge value may
+    reach 2 bytes outside the tensor (never outside a whole tensor of an
+    even number of values that starts on 4 bytes)."""
+    if images.dtype != torch.bfloat16 or images.numel() == 0:
+        return
+    st = images.untyped_storage()
+    first = images.data_ptr()
+    last = first + 2 * (images.numel() - 1)
+    if (first & ~3) < st.data_ptr() or \
+            (last & ~3) + 4 > st.data_ptr() + st.nbytes():
+        raise ValueError("composite_chunk: the 4-byte words holding the "
+                         "bf16 images' first and last values must lie in "
+                         "their storage")
+
+
+def composite_chunk(canvas, images, oy, ox, order, p: ChunkParams,
+                    plan: CompositePlan | None = None):
     """Kernel D: OVER of one chunk of per-particle images [n, 4, RP, RP]
     (bf16 or fp32) onto ``canvas`` [4, Hc, Wc] (bf16 or fp32; updated in
     place and returned).  Image k lands with its top-left pixel at
     canvas (``oy[k]``, ``ox[k]``) (int32, inside the canvas); the images
     are composited in the order ``order`` [n] int32 lists them, or as
     stored when it is None.  Per covered pixel:
-    ``C_ch = cdt(C_ch + Tw * img_ch)``, ``T = cdt(Tw * img_3)``."""
+    ``C_ch = cdt(C_ch + Tw * img_ch)``, ``T = cdt(Tw * img_3)``.
+    ``plan``: the launch's tile grid and list slots (default
+    ``chunk_plan`` of these shapes; a plan the kernel cannot take
+    raises).  On the card, bf16 images must pass ``_check_words``.  One
+    counted launch is two kernels: the lists' fill (``chunk_fill``) and
+    the walk, which orders each tile's list of composite positions and
+    composites it."""
     dev = canvas.device
     n, RP = p.n, p.RP
     dts = (torch.bfloat16, torch.float32)
     _check(canvas, "canvas", dts, (4, p.Hc, p.Wc))
     _check(images, "images", dts, (n, 4, RP, RP), dev)
-    _check(oy, "oy", (torch.int32,), (n,), dev)
-    _check(ox, "ox", (torch.int32,), (n,), dev)
-    if order is not None:
-        _check(order, "order", (torch.int32,), (n,), dev)
+    _check_chunk(oy, ox, order, p, dev)
     if dev.type != "cuda":
         return composite_chunk_plain(canvas, images, oy, ox, order, p)
-    from volq_torch._build import load
-    fn = load("composite_chunk").composite_chunk_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int] + [ctypes.c_void_p] * 3 \
-        + [ChunkParams, ctypes.c_void_p]
-    err = fn(_ptr(canvas), int(canvas.dtype == torch.bfloat16), _ptr(images),
-             int(images.dtype == torch.bfloat16), _ptr(oy), _ptr(ox),
-             _ptr(order), p, _stream(dev))
+    _check_words(images)
+    if plan is None:
+        plan = chunk_plan(p)
+    scratch = _list_scratch(plan, dev)
+    err = _kernel_fn("composite_chunk", "composite_chunk_launch",
+                     _CHUNK_ARGS["composite_chunk_launch"])(
+        _ptr(canvas), int(canvas.dtype == torch.bfloat16), _ptr(images),
+        int(images.dtype == torch.bfloat16), _ptr(oy), _ptr(ox),
+        _ptr(order), p, plan, _ptr(scratch), _stream(dev))
     if err:
         raise RuntimeError(f"composite_chunk launch failed: CUDA error {err}")
     composite_chunk.launches += 1

@@ -6,6 +6,7 @@ import numpy as np
 import torch
 
 from volq_torch.core.camera import make_camera, to_device
+from volq_torch.core.device import resolve_device
 from volq_torch.core.types import Particles, SceneState, Camera, Light
 from volq_torch.scene.config import SceneConfig, LightConfig, CameraConfig
 from volq_torch.sim import prng
@@ -14,26 +15,31 @@ from volq_torch.volume.bake import bake_bank, bake_bank_4d
 
 
 def build_camera(ccfg: CameraConfig, width: int, height: int,
-                 device="cpu") -> Camera:
+                 device=None) -> Camera:
+    """The config's camera on ``device`` (None: the card; raises without
+    one)."""
     return to_device(make_camera(ccfg.eye, ccfg.look_at, ccfg.up,
                                  fov_y_deg=ccfg.fov_y_deg,
                                  aspect=width / height,
                                  ortho_half_h=ccfg.ortho_half_h,
-                                 projection=ccfg.projection), device)
+                                 projection=ccfg.projection),
+                     resolve_device(device))
 
 
-def build_light(lcfg: LightConfig, device="cpu") -> Light:
+def build_light(lcfg: LightConfig, device=None) -> Light:
+    """The config's light on ``device`` (None: the card)."""
     d = np.asarray(lcfg.direction, np.float32)
     d = d / np.linalg.norm(d)
     return to_device(Light(direction=d,
                            color=np.asarray(lcfg.color, np.float32),
                            ambient=np.asarray(lcfg.ambient, np.float32)),
-                     device)
+                     resolve_device(device))
 
 
-def bake_volumes(cfg: SceneConfig, device="cpu", t=0.0):
+def bake_volumes(cfg: SceneConfig, device=None, t=0.0):
     """The scene's volume bank: static, or (``volume.animated``) the 4-D
-    bank at simulation time ``t``."""
+    bank at simulation time ``t``; on ``device`` (None: the card)."""
+    device = resolve_device(device)
     v = cfg.volume
     if v.animated:
         return bake_bank_4d(v.bank_size, v.size, v.seed, t,
@@ -93,7 +99,10 @@ def _init_particles(cfg: SceneConfig, key) -> Particles:
                      albedo=fresh["albedo"], vol_idx=fresh["vol_idx"])
 
 
-def init_scene(cfg: SceneConfig, device="cpu") -> SceneState:
+def init_scene(cfg: SceneConfig, device=None) -> SceneState:
+    """The initial scene state on ``device`` (None: the card; raises
+    without one)."""
+    device = resolve_device(device)
     base_key = prng.PRNGKey(cfg.seed, device)
     init_key = prng.fold_in(base_key, 0x5EED)
     f32 = dict(dtype=torch.float32, device=device)

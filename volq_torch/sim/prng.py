@@ -19,6 +19,8 @@ import math
 import numpy as np
 import torch
 
+from volq_torch.core.device import resolve_device
+
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -43,10 +45,11 @@ def threefry2x32(k1, k2, x1, x2):
     return x0, x1
 
 
-def PRNGKey(seed: int, device="cpu"):
-    """jax.random.PRNGKey(seed) for an int32 seed: [0, seed mod 2^32]."""
+def PRNGKey(seed: int, device=None):
+    """jax.random.PRNGKey(seed) for an int32 seed: [0, seed mod 2^32],
+    on ``device`` (None: the card; raises without one)."""
     return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64,
-                        device=device)
+                        device=resolve_device(device))
 
 
 def _hash(keys, counts):

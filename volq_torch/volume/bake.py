@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from volq_torch.core.device import resolve_device
+
 from volq_torch.volume.noise import fbm3, fbm4, _hash_base, _u2f
 
 # voxels per bake chunk: ~2^25 keeps the int64 hash temporaries of one
@@ -73,21 +75,24 @@ def _bake(bank_size: int, size: int, seed: int, noise_of, noise_scale,
 
 def bake_bank(bank_size: int, size: int, seed: int, *, octaves: int = 4,
               noise_scale: float = 4.0, cutoff: float = 0.3,
-              edge: float = 0.9, dtype=torch.bfloat16, device="cpu"):
-    """Bake a static volume bank [bank_size, V, V, V] on ``device``."""
+              edge: float = 0.9, dtype=torch.bfloat16, device=None):
+    """Bake a static volume bank [bank_size, V, V, V] on ``device``
+    (None: the card; raises without one)."""
     return _bake(bank_size, size, seed,
                  lambda xyz, ids: fbm3(xyz, seed, octaves=octaves),
-                 noise_scale, cutoff, edge, dtype, device)
+                 noise_scale, cutoff, edge, dtype, resolve_device(device))
 
 
 def bake_bank_4d(bank_size: int, size: int, seed: int, t, *,
                  octaves: int = 3, noise_scale: float = 4.0,
                  time_scale: float = 0.5, cutoff: float = 0.3,
-                 edge: float = 0.9, dtype=torch.bfloat16, device="cpu"):
+                 edge: float = 0.9, dtype=torch.bfloat16, device=None):
     """Bake a time-animated bank from 4-D noise at simulation time ``t``
     (a float or a 0-d tensor, used as fp32).  Entry ``e`` samples the
     time coordinate ``t * time_scale + u2f(hash(e, 3e+1, 5e+2,
-    seed+202)) * 16``, so the entries drift out of phase."""
+    seed+202)) * 16``, so the entries drift out of phase.  On ``device``
+    (None: the card; raises without one)."""
+    device = resolve_device(device)
     t = torch.as_tensor(t, dtype=torch.float32, device=device)
 
     def noise_of(xyz, ids):

@@ -9,15 +9,20 @@ final result line):
   2. build the seven kernels (every mode of each is in its one source)
      from volq_torch/csrc/ (one nvcc per source, in parallel) and print
      the build seconds;
-  2a. the probes: hold probe_mma against its fp64 plain version within
-     1e-4 of max |out| (G 4 at the stack depth R of the timed launches,
-     five shapes incl. a ragged M and a K that streams, nacc 1 and 8, 1 and
-     132 blocks), probe_stage bit-equal (K 1,
-     4, 12, with small and const stacks) and probe_window bit-equal on the
+  2a. the probes: hold both arms of probe_mma (mma_sync, wgmma) against
+     its fp64 plain version within 1e-4 of max |out| (G 4 at the stack
+     depth R of the timed launches, seven shapes that exercise every wgmma
+     plan -- transposed, padded, streamed through the ring, n16, N 256 --
+     nacc 1 and 8, 1 and 132 blocks), both arms of probe_stage (cp_async;
+     tma at ring depths 2, 4 and 8 where the ring fits) bit-equal (K 1, 4,
+     12, with small and const stacks) and probe_window bit-equal on the
      reference's 4096 windows of a 1088 x 2048 canvas at every alignment;
-     then run the probes' entry point (python -m volq_torch.probe, in
-     process) from zeroed launch counters: every probe must have launched,
-     and no printed tensor-core rate may exceed the card's 989 TFLOP/s;
+     read the SASS of the two probes (python -m volq_torch.sass): HGMMA
+     and UTMALDG in every wgmma-arm function, UBLKCP in the tma arm and no
+     block barrier (BAR) in its loops; then run the probes' entry point
+     (python -m volq_torch.probe, in process) from zeroed launch counters:
+     every probe and every arm must have launched, and no printed
+     tensor-core rate may exceed the card's 989 TFLOP/s;
   2b. the command line, in process, on the card: preset c1 as shipped (the
      exact engine), 2 frames with --png --npy --checkpoint, then --resume
      for one more frame, which must equal the third frame of an
@@ -122,9 +127,14 @@ final result line):
      "warp_march ortho" and
      "warp_images ortho": A's and C's orthographic mode on the c3 and c4
      ortho paths; per probe kernel: launches of the probes' run, error,
-     and ms, plain ms, bound and -- probe_mma -- the library's time for
-     the same products: one torch.matmul over a batch of LIB_BATCH of
-     them, scaled per product to the kernel's count, at one named point),
+     and ms, plain ms, bound at one named point -- for probe_mma and
+     probe_stage the new arm's (wgmma, tma) with the old arm's ms beside
+     it under the arm's name; probe_stage's bound the largest of bytes,
+     operations and its chain of G dependent fp32 adds at the SM clock
+     read under the launch; probe_mma's library time one torch.matmul of
+     the same sums, the R operands side by side along K ([Bt, M, R K] @
+     [R K, N], B stacked R times), Bt copies whose operands stay in L2,
+     replayed from a CUDA graph and scaled per product),
      the card line, and last the result line {"ok": true, "device":
      {...}}.
 
@@ -176,8 +186,9 @@ PREV_MS = {
                     "warp_images": 2.5816, "composite_chunk": 0.2014},
     "c4 ortho": {"warp_images": 1.4449, "composite_chunk": 0.1950},
     "c5": {"warp_march": 5.0899, "warp_composite": 2.3870}}
-# products of one torch.matmul batch that times probe_mma's library call
-LIB_BATCH = 65536
+# operand bytes of the torch.matmul that times probe_mma's library call:
+# its batch stays in L2 (50 MB) from one call to the next
+LIB_L2_BYTES = 40e6
 PROBES = ("probe_mma", "probe_stage", "probe_window")
 # probe_mma against its fp64 plain version, relative to max |out|
 MMA_TOL = 1e-4
@@ -268,6 +279,8 @@ def _wrappers():
 def _zero_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "arm_launches"):
+            fn.arm_launches = dict.fromkeys(fn.arm_launches, 0)
 
 
 def _counts():
@@ -608,6 +621,25 @@ def sweep_plans(tag, march, Pm, card):
     return out
 
 
+def _wrapper_ms(fn, reps: int = 5) -> float:
+    """Median of the CUDA-event ms around one call of ``fn``, waited on
+    each time (after one warm-up call): the launch and the host work of
+    the Python wrapper before it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        ts.append(e0.elapsed_time(e1))
+    return sorted(ts)[len(ts) // 2]
+
+
 def _graph_ms(fn, reps: int = 20) -> float:
     """Device ms per call of ``fn`` replayed from a CUDA graph: the
     kernels' own time, without the Python wrapper's."""
@@ -827,51 +859,68 @@ def time_loop(tag, prepared, cfg, card, fb=N_FRAMES, n_frames=16, warmup=1):
 
 
 def check_probes(errs):
-    """The three probe kernels against their plain versions."""
+    """The three probe kernels against their plain versions, both arms of
+    probe_mma and probe_stage.  ``errs[name]`` gets the new arm's error,
+    ``errs[name, arm]`` each arm's."""
     import torch
     from volq_torch import probe
     from volq_torch.probe import tensor_core, stage, window
     dev = "cuda"
-    shapes = [(t, M, K, N) for t, M, K, N in
-              tensor_core.SHAPES + tensor_core.PIPE_SHAPES
-              if t in ("c3_dot1", "up_tlist", "c4_dot2_paired",
-                       "m_sweep_16", "n_sweep_256")]
-    for tag, M, K, N in dict.fromkeys(shapes):
-        for nacc in (1, 8):
-            for blocks in (1, tensor_core.N_SM):
-                # the stack depth of the timed launches, so that the plan
-                # and the accumulators in use are theirs
-                R, _ = tensor_core.size_run(M, K, N)
-                A, B = tensor_core.make_inputs(R, M, K, N, dev)
-                out = probe.mma_probe(A, B, 4, nacc, blocks)
-                ref = probe.mma_probe_plain(A, B, 4, blocks)
-                torch.cuda.synchronize()
-                err = float((out - ref).abs().max())
-                rel = err / float(ref.abs().max())
-                plan = tensor_core.mma_plan(R, M, K, N, nacc)
-                print(f"[kernels] probe_mma {tag} {M} x {K} x {N} R {R} G 4 "
-                      f"nacc {nacc} (in use {plan.nacc}) blocks {blocks} "
-                      f"{'resident' if plan.resident else 'KC %d' % plan.KC}"
-                      f": max|kernel - plain| = {err:.3e} = {rel:.3e} of "
-                      f"max |out|")
-                assert tuple(out.shape) == (blocks, M, N)
-                assert rel <= MMA_TOL, f"probe_mma {tag} disagrees: {rel}"
-                errs["probe_mma"] = max(errs["probe_mma"], err)
-                errs["probe_mma_rel"] = max(errs.get("probe_mma_rel", 0.0),
-                                            rel)
+    # every shape of the probes' sweep, so that every instantiation that
+    # the sweep launches is held to the plain version, each at the stack
+    # depth of its timed launches (so that the plan and the accumulators
+    # in use are theirs), chained and round-robin, on 1 and 132 blocks
+    shapes = {(M, K, N): t for t, M, K, N in
+              tensor_core.SHAPES + tensor_core.PIPE_SHAPES}
+    for (M, K, N), tag in shapes.items():
+        R, _ = tensor_core.size_run(M, K, N)
+        A, B = tensor_core.make_inputs(R, M, K, N, dev)
+        ref1 = probe.mma_probe_plain(A, B, 4)
+        scale = float(ref1.abs().max())
+        for arm in tensor_core.ARMS:
+            worst, plans = 0.0, set()
+            for nacc in (1, 8):
+                plan = tensor_core.plan_for(arm, R, M, K, N, nacc)
+                plans.add(plan.nacc)
+                for blocks in (1, tensor_core.N_SM):
+                    out = probe.mma_probe(A, B, 4, nacc, blocks, arm)
+                    assert tuple(out.shape) == (blocks, M, N)
+                    worst = max(worst, float((out - ref1).abs().max()))
+            rel = worst / scale
+            how = "resident" if plan.resident else "KC %d" % plan.KC
+            if arm == "wgmma":
+                how += (f", {'transposed' if plan.trans else 'direct'} "
+                        f"n{plan.n}, {plan.tpw} tiles a warpgroup, pad "
+                        f"{plan.pad}, {plan.stages} stages")
+            print(f"[kernels] probe_mma {arm} {tag} {M} x {K} x {N} R {R} "
+                  f"G 4 nacc 1 / 8 (in use {sorted(plans)}) blocks 1 / "
+                  f"{tensor_core.N_SM} {how}: max|kernel - plain| = "
+                  f"{worst:.3e} = {rel:.3e} of max |out|")
+            assert rel <= MMA_TOL, f"probe_mma {arm} {tag} disagrees: {rel}"
+            for key, v in ((("probe_mma", arm), worst),
+                           (("probe_mma_rel", arm), rel)):
+                errs[key] = max(errs.get(key, 0.0), v)
     for K, small, const in ((1, 0, 0), (4, 0, 0), (12, 0, 0), (2, 3, 4)):
         args = stage.make_inputs(K, small, const, dev)
-        for G in (1, 2048):
-            out = probe.stage_probe(*args, G)
-            ref = probe.stage_probe_plain(*args, G)
-            torch.cuda.synchronize()
-            d = float((out - ref).abs().max())
-            print(f"[kernels] probe_stage K {K} small {small} const {const} "
-                  f"G {G}: bit-equal {torch.equal(out, ref)}, max diff "
-                  f"{d:.3e}, sum {float(out.sum()):.3f}")
-            assert torch.equal(out, ref), "probe_stage differs"
-            assert float(out.sum()) > 0.0
-            errs["probe_stage"] = max(errs["probe_stage"], d)
+        runs = [("cp_async", None)] + [
+            ("tma", d) for d in stage.DEPTHS
+            if stage.ring_fits(K, small, const, d)]
+        for arm, depth in runs:
+            for G in (1, 2048):
+                out = probe.stage_probe(*args, G, arm, depth)
+                ref = probe.stage_probe_plain(*args, G)
+                torch.cuda.synchronize()
+                d = float((out - ref).abs().max())
+                print(f"[kernels] probe_stage {arm} depth {depth or 2} K "
+                      f"{K} small {small} const {const} G {G}: bit-equal "
+                      f"{torch.equal(out, ref)}, max diff {d:.3e}, sum "
+                      f"{float(out.sum()):.3f}")
+                assert torch.equal(out, ref), f"probe_stage {arm} differs"
+                assert float(out.sum()) > 0.0
+                errs["probe_stage", arm] = max(
+                    errs.get(("probe_stage", arm), 0.0), d)
+    errs["probe_mma"] = errs["probe_mma", "wgmma"]
+    errs["probe_stage"] = errs["probe_stage", "tma"]
     for align in window.ARMS:
         off = torch.from_numpy(window.make_offsets(align)).to(dev)
         out = probe.window_probe(
@@ -888,29 +937,64 @@ def check_probes(errs):
         errs["probe_window"] = max(errs["probe_window"], d)
 
 
+def check_probe_sass():
+    """The arms run what they claim: HGMMA and UTMALDG in every function
+    of probe_mma's wgmma arm (HMMA in the mma_sync arm's), UBLKCP in
+    probe_stage's tma arm and no block barrier (BAR) in its loops."""
+    from volq_torch import sass
+    for name, arms in (("probe_mma", {"wgmma": ("HGMMA", "UTMALDG"),
+                                      "probe_mma_kernel": ("HMMA",)}),
+                       ("probe_stage", {"tma": ("UBLKCP", "SYNCS"),
+                                        "probe_stage_kernel": ("LDGSTS",)})):
+        recs = sass.analyse(name)
+        for match, want in arms.items():
+            fns = [r for r in recs if match in r["function"]]
+            assert fns, f"no {match} function in {name}'s SASS"
+            for r in fns:
+                have = {op: r["opcodes"].get(op, 0) for op in want}
+                assert all(have.values()), f"{r['function']}: {have}"
+            print(f"[sass] {name} {match}: {len(fns)} functions, each with "
+                  + ", ".join(want) + "; e.g. " + fns[0]["function"] + ": "
+                  + " ".join(f"{k} {v}" for k, v in
+                             fns[0]["classes"].items()))
+        if name == "probe_stage":
+            tma = [r for r in recs if "tma" in r["function"]][0]
+            bars = [lp for lp in tma["loops"] if lp["opcodes"].get("BAR")]
+            assert not bars, f"a block barrier in the tma arm's loops: {bars}"
+            print(f"[sass] probe_stage tma: {len(tma['loops'])} loops, no "
+                  f"BAR in any")
+
+
 def run_probes(card):
     """The probes' entry point, in process, from zeroed counters.  Returns
     (launch counts, records by probe)."""
+    from volq_torch import probe
     from volq_torch.probe import __main__ as probe_main
     _zero_counts()
     recs = {name: probe_main.RUNNERS[name](card)
             for name in ("mma", "stage", "window")}
     counts = _counts()
-    print(f"[main] probes: launches {counts}")
+    arms = {"probe_mma": dict(probe.mma_probe.arm_launches),
+            "probe_stage": dict(probe.stage_probe.arm_launches)}
+    print(f"[main] probes: launches {counts}, by arm {arms}")
     for name in PROBES:
         assert counts[name] > 0, f"{name} never launched in the probes' run"
+    for name, by_arm in arms.items():
+        assert all(by_arm.values()), f"an arm of {name} never launched"
     top = max(r["tflops"] for r in recs["mma"])
     print(f"[main] probes: highest tensor-core rate read {top:.2f} TFLOP/s "
           f"(the card's dense bf16 peak is {BF16_FLOP_PER_S / 1e12:.0f})")
     assert top <= BF16_FLOP_PER_S / 1e12, "a rate above the card's peak"
     assert all(r["ns_per_step"] > 0 for r in recs["stage"])
     assert all(r["ns_per_window"] > 0 for r in recs["window"])
-    return counts, recs
+    return counts, arms, recs
 
 
 def time_probes(card):
-    """One named point per probe: the kernel's ms, its plain version's,
-    the bound, and for probe_mma one torch.matmul over the same operands."""
+    """One named point per probe: the kernel's ms (probe_mma and
+    probe_stage: the new arm's, the old arm's beside it), its plain
+    version's, the bound, and for probe_mma one torch.matmul of the same
+    sums."""
     import torch
     from volq_torch import probe
     from volq_torch.probe import tensor_core, stage, window
@@ -924,38 +1008,76 @@ def time_probes(card):
     dots = blocks * G * R
     by = A.numel() * 2 + B.numel() * 2 + blocks * M * N * 4
     t_b, t_f = by / HBM_BYTES_PER_S, 2.0 * M * K * N * dots / BF16_FLOP_PER_S
+    ms = {arm: probe.median_ms(
+        lambda: probe.mma_probe(A, B, G, 8, blocks, arm))
+        for arm in tensor_core.ARMS}
+    plan = tensor_core.wgmma_plan(R, M, K, N, 8)
     out["probe_mma"] = {
-        "ms": probe.median_ms(lambda: probe.mma_probe(A, B, G, 8, blocks)),
-        "plain_ms": probe.median_ms(
-            lambda: probe.mma_probe_plain(A, B, G, blocks)),
+        "ms": ms["wgmma"], "arm": "wgmma", "mma_sync_ms": ms["mma_sync"],
+        "plain_ms": _cuda_ms(lambda: probe.mma_probe_plain(A, B, G, blocks),
+                             1),
         "bound_ms": max(t_b, t_f) * 1e3,
         "bound_by": "bytes" if t_b >= t_f else "operations",
-        "point": f"c3_dot1 {M} x {K} x {N} bf16, R {R}, G {G}, nacc 8, "
-                 f"{blocks} blocks", "dots": dots}
-    # the library's time for the same work: one torch.matmul over a batch
-    # of LIB_BATCH of the same products (the R operands repeated), scaled
-    # per product to the kernel's ``dots``
-    Ab = A.repeat(LIB_BATCH // R, 1, 1)
-    lib_batch_ms = probe.median_ms(lambda: torch.matmul(Ab, B))
-    del Ab
+        "point": f"c3_dot1 {M} x {K} x {N} bf16, R {R}, G {G}, nacc 8 "
+                 f"(wgmma: {'transposed' if plan.trans else 'direct'} "
+                 f"m64n{plan.n}, {plan.nacc} accumulators), {blocks} blocks",
+        "dots": dots}
+    # the library's time for the same sums: sum_i A[i] @ B is one product
+    # [M, R K] @ [R K, N] of the R operands side by side along K and B
+    # stacked R times; Bt copies of it, operands within LIB_L2_BYTES so
+    # that they stay in L2, one torch.matmul replayed from a CUDA graph,
+    # scaled per product to the kernel's ``dots``
+    a_cat = A.permute(1, 0, 2).reshape(M, R * K)
+    bt = max(1, int(LIB_L2_BYTES // (a_cat.numel() * 2)))
+    a_b = a_cat.unsqueeze(0).repeat(bt, 1, 1).contiguous()
+    b_st = B.repeat(R, 1).contiguous()
+    lib = torch.matmul(a_b[:1], b_st).float()[0]
+    torch.cuda.synchronize()
+    lib_err = float((lib - probe.mma_probe_plain(A, B, 1)[0]).abs().max())
+    lib_call_ms = _graph_ms(lambda: torch.matmul(a_b, b_st), reps=50)
+    del a_b
     out["probe_mma"].update(
-        library_ms=lib_batch_ms * dots / (LIB_BATCH // R * R),
-        library_batch=LIB_BATCH // R * R, library_batch_ms=lib_batch_ms)
-    # probe_stage: K 4, G 2048.  Bytes the function must move: the blocks
-    # n % M < min(G, M) of the K stacks read once (later steps fetch them
-    # again, from L2), the output written once; operations: one fp32 add
-    # per element and step
+        library_ms=lib_call_ms * dots / (bt * R),
+        library_call=f"torch.matmul([{bt}, {M}, {R * K}] @ [{R * K}, {N}]) "
+                     "bf16, CUDA-graph replay",
+        library_call_ms=lib_call_ms, library_products=bt * R,
+        library_max_abs_err=lib_err)
+    # probe_stage: K 4, G 2048, the tma arm at the default depth.  Bytes
+    # the function must move: the blocks n % M < min(G, M) of the K stacks
+    # read once (later steps fetch them again, from L2), the output
+    # written once; operations: one fp32 add per element and step; and the
+    # sum is a chain of G dependent adds per element: G times the latency
+    # of one, timed on the card, at the SM clock read while the launches
+    # run.  ``ms`` is device time (graph replay); ``wrapper_ms`` puts the
+    # events around the Python call instead, its host work included
     Ks, Gs = 4, 2048
     args = stage.make_inputs(Ks, 0, 0, dev)
+    st_ms, st_wrap = {}, {}
+    for arm in stage.ARMS:
+        st_ms[arm] = probe.median_ms(lambda: probe.stage_probe(*args, Gs, arm))
+        st_wrap[arm] = _wrapper_ms(lambda: probe.stage_probe(*args, Gs, arm))
+    mhz = _sm_clock_during(lambda: probe.stage_probe(*args, Gs), st_ms["tma"])
+    fadd = stage.fadd_clocks()
     st_by = min(Gs, args[0][0].shape[0]) * Ks * 4096 + 4096
-    st_b, st_f = _bound(st_by, Gs * 8 * 128)
+    terms = {"bytes": st_by / HBM_BYTES_PER_S * 1e3,
+             "operations": Gs * 8 * 128 / FP32_FLOP_PER_S * 1e3,
+             "chain": Gs * fadd / (mhz * 1e6) * 1e3}
+    term = max(terms, key=terms.get)
     out["probe_stage"] = {
-        "ms": probe.median_ms(lambda: probe.stage_probe(*args, Gs)),
-        "plain_ms": probe.median_ms(
-            lambda: probe.stage_probe_plain(*args, Gs), 1),
-        "bound_ms": st_b, "bound_by": st_f, "library_ms": None,
-        "bound_bytes": st_by,
-        "point": f"K {Ks} tiles of 4 KB a step, G {Gs} steps"}
+        "ms": st_ms["tma"], "arm": "tma", "depth": stage.DEPTH,
+        "cp_async_ms": st_ms["cp_async"],
+        "wrapper_ms": st_wrap["tma"], "cp_async_wrapper_ms":
+            st_wrap["cp_async"],
+        "plain_ms": _cuda_ms(lambda: probe.stage_probe_plain(*args, Gs), 1),
+        "bound_ms": terms[term],
+        # the chain is G dependent operations
+        "bound_by": "bytes" if term == "bytes" else "operations",
+        "bound_term": term, "bound_terms_ms": terms, "sm_mhz": mhz,
+        "fadd_clocks": fadd,
+        "library_ms": None, "bound_bytes": st_by,
+        "ns_per_step": st_ms["tma"] * 1e6 / Gs,
+        "point": f"K {Ks} tiles of 4 KB a step, G {Gs} steps, tma ring of "
+                 f"{stage.DEPTH}"}
     # probe_window: 16-element alignment
     align = 16
     off = torch.from_numpy(window.make_offsets(align)).to(dev)
@@ -968,16 +1090,20 @@ def time_probes(card):
     out["probe_window"] = {
         "ms": probe.median_ms(lambda: probe.window_probe(
             canvas, off, align, check_offsets=False)),
-        "plain_ms": probe.median_ms(
+        "plain_ms": _cuda_ms(
             lambda: probe.window_probe_plain(canvas, off, align), 1),
         "bound_ms": w_b, "bound_by": w_f, "library_ms": None,
         "bound_bytes": w_by, "cells_touched": touched,
         "point": f"{window.N} windows 8 x 128 fp32 of a {window.H} x "
                  f"{window.W} canvas, x aligned to {align}"}
     for name, t in out.items():
-        print(f"[timing] {name} ({t['point']}): kernel {t['ms']:.4f} ms, "
-              f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.6f} ms "
-              f"({t['bound_by']}), library {t['library_ms']}  [{card}]")
+        old = {k: v for k, v in t.items() if k in (
+            "mma_sync_ms", "cp_async_ms", "wrapper_ms", "cp_async_wrapper_ms",
+            "fadd_clocks", "sm_mhz")}
+        print(f"[timing] {name} ({t['point']}): kernel {t['ms']:.4f} ms "
+              f"{old}, plain {t['plain_ms']:.3f} ms, bound "
+              f"{t['bound_ms']:.6f} ms ({t.get('bound_term', t['bound_by'])})"
+              f", library {t['library_ms']}  [{card}]")
     return out
 
 
@@ -1177,7 +1303,8 @@ def main() -> int:
 
     # ---- the probes, then the command line on c1 and c2
     check_probes(errs)
-    probe_counts, _ = run_probes(card)
+    check_probe_sass()
+    probe_counts, probe_arms, _ = run_probes(card)
     probe_times = time_probes(card)
     c1_counts = drive_cli(card)
     c1_times = time_c1_warp(card, errs)
@@ -1387,8 +1514,15 @@ def main() -> int:
              "replaces": replaces[name], "launches": probe_counts[name],
              "max_abs_err": errs[name], **probe_times[name],
              "path": "probes"}
+        if name in probe_arms:
+            k["launches_by_arm"] = probe_arms[name]
+            k["max_abs_err_by_arm"] = {arm: errs[name, arm]
+                                       for arm in probe_arms[name]}
         if name == "probe_mma":
-            k["max_rel_err"] = errs["probe_mma_rel"]
+            k["max_rel_err"] = errs["probe_mma_rel", "wgmma"]
+            k["max_rel_err_by_arm"] = {
+                arm: errs["probe_mma_rel", arm] for arm in ("mma_sync",
+                                                            "wgmma")}
         kernels.append(k)
     print(f"[time] every phase, the builds included: "
           f"{time.perf_counter() - t_start:.0f} s")

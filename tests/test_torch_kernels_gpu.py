@@ -27,7 +27,11 @@ and widest blocks; the global arm where no ring fits; RM 128 in both
 projections) and B's edges (a tile every particle covers, with a list
 longer than a block holds in shared memory and one longer than a bitmap
 window of its list order; no list slots) are held at max abs err 0 (A)
-and torch.equal (B); B's fill kernel against tile_lists_plain.
+and torch.equal (B); B's fill kernel against tile_lists_plain.  The
+probes: both arms of probe_mma (mma_sync, wgmma) on shapes that exercise
+every wgmma plan within 1e-4 of max |out| of the fp64 plain sum, both arms
+of probe_stage (cp_async, tma at ring depths 2, 4, 8) and probe_window
+bit-equal.
 """
 import dataclasses
 
@@ -321,44 +325,71 @@ def test_animated_coarse_frames_count_launches():
 # --------------------------------------------------------------------------
 # the probe kernels (volq_torch/probe) against their plain versions
 
+@pytest.mark.parametrize("arm", ["mma_sync", "wgmma"])
 @pytest.mark.parametrize("blocks", [1, 3])
 @pytest.mark.parametrize("nacc", [1, 8])
 @pytest.mark.parametrize("shape", [(16, 32, 16), (80, 128, 64),
                                    (120, 64, 64), (64, 1280, 64),
-                                   (128, 64, 256)],
+                                   (128, 64, 256), (80, 1280, 80),
+                                   (128, 1280, 128), (16, 128, 128),
+                                   (120, 64, 256), (128, 128, 32),
+                                   (32, 128, 128), (256, 128, 128)],
                          ids=lambda s: "x".join(map(str, s)))
-def test_probe_mma_matches_plain(shape, nacc, blocks):
+def test_probe_mma_matches_plain(shape, nacc, blocks, arm):
     """One tile, a 5-tile M, a ragged M, a K that streams in chunks, 16
-    tiles a warp: within 1e-4 of max |out| of the fp64 plain sum."""
+    tiles a warp; for the wgmma arm also each of its plans: transposed
+    (80 x 128 x 64, 120 x 64 x 64, n16 16 x 128 x 128, two tiles a
+    warpgroup 120 x 64 x 256, n32 32 x 128 x 128), padded (16 x 32 x 16,
+    and 80 x 1280 x 80 streamed), streamed (64 x 1280 x 64 with the
+    products split between the warpgroups, 128 x 1280 x 128 with the tiles
+    split), n256 (128 x 64 x 256), n32 (128 x 128 x 32), two tiles a
+    warpgroup (256 x 128 x 128) -- every instantiation of the wgmma arm:
+    within 1e-4 of max |out| of the fp64 plain sum."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from volq_torch import probe
     from volq_torch.probe import tensor_core
     M, Kd, N = shape
-    R = 8 if Kd == 1280 else 3   # 8 operands of 64 x 1280 do not fit
+    # 8 operands of 64 x 1280 do not fit, nor 3 of 256 x 128 for mma_sync
+    R = 8 if Kd == 1280 else 2 if M == 256 else 3
     A, B = tensor_core.make_inputs(R, M, Kd, N, "cuda", seed=M)
-    assert tensor_core.mma_plan(R, M, Kd, N, nacc).resident == (Kd < 1280)
-    n0 = probe.mma_probe.launches
-    out = probe.mma_probe(A, B, 5, nacc, blocks)
+    plan = tensor_core.plan_for(arm, R, M, Kd, N, nacc)
+    assert plan.resident == (Kd < 1280)
+    n0, a0 = probe.mma_probe.launches, probe.mma_probe.arm_launches[arm]
+    out = probe.mma_probe(A, B, 5, nacc, blocks, arm)
     ref = probe.mma_probe_plain(A, B, 5, blocks)
     assert probe.mma_probe.launches == n0 + 1
+    assert probe.mma_probe.arm_launches[arm] == a0 + 1
     assert tuple(out.shape) == (blocks, M, N)
     assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
-    assert float(probe.mma_probe(A, B, 0, nacc, blocks).abs().max()) == 0.0
+    assert float(probe.mma_probe(A, B, 0, nacc, blocks, arm).abs().max()) \
+        == 0.0
 
 
+@pytest.mark.parametrize("run", [("cp_async", None), ("tma", 2), ("tma", 4),
+                                 ("tma", 8)],
+                         ids=lambda r: r[0] + ("" if r[1] is None
+                                               else str(r[1])))
 @pytest.mark.parametrize("mix", [(1, 0, 0), (4, 0, 0), (12, 0, 0),
                                  (2, 3, 0), (2, 0, 4), (16, 4, 4)],
                          ids=lambda m: "K%d-s%d-c%d" % m)
-def test_probe_stage_matches_plain(mix):
+def test_probe_stage_matches_plain(mix, run):
+    """Bit-equal on each arm, the tma arm at every ring depth; a ring that
+    does not fit the block's shared memory is refused before a launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from volq_torch import probe
     from volq_torch.probe import stage
+    arm, depth = run
     args = stage.make_inputs(*mix, "cuda", M=8)
     n0 = probe.stage_probe.launches
+    if arm == "tma" and not stage.ring_fits(*mix, depth):
+        with pytest.raises(ValueError):
+            probe.stage_probe(*args, 5, arm, depth)
+        assert probe.stage_probe.launches == n0
+        return
     for G in (0, 1, 2, 19, 300):
-        out = probe.stage_probe(*args, G)
+        out = probe.stage_probe(*args, G, arm, depth)
         assert torch.equal(out, probe.stage_probe_plain(*args, G)), G
     assert probe.stage_probe.launches == n0 + 5
 

@@ -106,6 +106,139 @@ def test_mma_plans_cover_the_reference_shapes():
             tensor_core.mma_plan(*bad)
 
 
+_WG_SHAPES = dict.fromkeys(tensor_core.SHAPES + tensor_core.PIPE_SHAPES)
+
+
+@pytest.mark.parametrize("shape", list(_WG_SHAPES),
+                         ids=[f"{t}-{M}x{K}x{N}" for t, M, K, N in _WG_SHAPES])
+def test_wgmma_plans_cover_the_reference_shapes(shape):
+    """The wgmma arm's plan of every shape of the reference's sweep, at the
+    timed launch's stack depth: the orientation (transposed where only N
+    divides by 64, padded only where neither side does), 64-row tiles that
+    cover the output, a wgmma N the instruction takes, shared memory and
+    accumulator registers within the block's limits, legal TMA boxes."""
+    tag, M, K, N = shape
+    R, _ = tensor_core.size_run(M, K, N)
+    for nacc in (1, 8):
+        p = tensor_core.wgmma_plan(R, M, K, N, nacc)
+        assert p.trans == (tag in ("c3_dot1", "up_tlist", "up_xplace",
+                                   "m_sweep_16", "m_sweep_32"))
+        assert (p.pad > 0) == (tag == "c3_dot2")
+        assert p.trans == (M % 64 != 0 and N % 64 == 0)
+        rows, cols = (N, M) if p.trans else (M + p.pad, N)
+        assert p.Tm * 64 == rows >= (N if p.trans else M) and p.n == cols
+        assert p.n % 8 == 0 and 8 <= p.n <= 256
+        assert p.useful == pytest.approx(M * N / (p.Tm * 64 * p.n))
+        assert p.useful == (0.625 if tag == "c3_dot2" else 1.0)
+        assert 2 * p.tpw >= p.Tm and p.split == (p.Tm == 1)
+        assert (p.n, p.tpw, p.trans) in tensor_core.WGMMA_CONFIGS
+        # accumulators: m64nN fp32 is N / 2 registers a thread
+        assert p.acc_regs == p.nacc * p.tpw * p.n // 2
+        assert p.acc_regs <= tensor_core.ACC_REGS
+        assert p.nacc == (1 if nacc == 1 else
+                          tensor_core.WGMMA_CONFIGS[(p.n, p.tpw, p.trans)])
+        assert p.smem <= tensor_core.SMEM_BYTES
+        # TMA: every box dimension <= 256, the inner one 128 bytes of bf16
+        # (the 128-byte swizzle's span)
+        for box in p.boxes:
+            assert all(1 <= d <= 256 for d in box) and box[0] * 2 == 128
+        assert p.boxes[0][1] == p.rowsA and p.rowsA % 8 == 0
+        assert p.params["a_box"] % 1024 == 0 and p.params["b_chunk"] % 1024 \
+            == 0, "swizzled tiles must start on 1024-byte boundaries"
+        if p.resident:
+            assert K <= 256 and p.KC == K and p.boxes[1][1] == K
+        else:
+            assert K == 1280 and p.KC == 64 and p.boxes[1][1] == 64
+            assert p.stages >= (3 if p.split else 2)
+            assert p.params["slot"] % 1024 == 0
+    assert tensor_core.wgmma_plan(R, M, K, N, 1).resident == (K < 1280)
+
+
+def test_wgmma_plan_refuses_what_no_instantiation_takes():
+    for bad in ((4, 64, 24, 64, 1), (4, 64, 64, 72, 1), (4, 64, 64, 64, 4),
+                (2, 320, 64, 64, 1), (2, 72, 64, 48, 1),
+                (2, 64, 64, 48, 1)):
+        with pytest.raises(ValueError):
+            tensor_core.wgmma_plan(*bad)
+    # the test shapes of the card tests each have a plan
+    assert tensor_core.wgmma_plan(3, 16, 32, 16, 8).pad == 48
+    assert tensor_core.wgmma_plan(8, 120, 64, 256, 1).tpw == 2
+    assert not tensor_core.wgmma_plan(8, 80, 1280, 80, 1).resident
+
+
+@pytest.mark.parametrize("mix", list(dict.fromkeys(
+    [(K, s, c) for K, _, s, c in stage.SWEEP] + [(16, 4, 4)])),
+    ids=lambda m: "K%d-s%d-c%d" % m)
+@pytest.mark.parametrize("depth", stage.DEPTHS)
+def test_stage_ring_plan(mix, depth):
+    """The tma arm's ring: depth slots of K 4 KB tiles and the small
+    blocks, beside the const tiles, within the block's shared memory, or
+    refused; every bulk copy 16-byte sized into 16-byte-aligned slots."""
+    K, small, const = mix
+    need = depth * (K * 4096 + small * 64) + const * 4096
+    if need > stage.SMEM_BYTES:
+        with pytest.raises(ValueError):
+            stage.tma_plan(K, small, const, depth)
+        return
+    p = stage.tma_plan(K, small, const, depth)
+    assert p.depth == depth and p.smem <= stage.SMEM_BYTES
+    assert p.slot >= K * 4096 + small * 64 and p.slot % 128 == 0
+    assert p.smem >= need
+    for nbytes, count in p.copies:
+        assert nbytes % 16 == 0 and count >= 0
+    # each copy's offset in a slot is a 16-byte multiple
+    offs = [k * 4096 for k in range(K)] + [K * 4096 + s * 64
+                                           for s in range(small)]
+    assert all(o % 16 == 0 for o in offs)
+
+
+def test_new_arms_on_the_cpu_run_the_plain_versions():
+    """On CPU tensors the wgmma and tma arms (the defaults) return the
+    plain result and launch nothing; an unknown arm, a ring shallower than
+    two, a ring that does not fit and a misaligned stack are refused."""
+    n0, s0 = probe.mma_probe.launches, probe.stage_probe.launches
+    A, B = tensor_core.make_inputs(3, 80, 128, 64, "cpu")
+    ref = probe.mma_probe_plain(A, B, 2, 2)
+    for arm in ("wgmma", "mma_sync"):
+        assert torch.equal(probe.mma_probe(A, B, 2, 8, 2, arm), ref)
+    assert torch.equal(probe.mma_probe(A, B, 2, 8, 2), ref)
+    args = stage.make_inputs(2, 1, 1, "cpu", M=4)
+    ref = probe.stage_probe_plain(*args, 9)
+    for arm, depth in (("tma", None), ("tma", 2), ("tma", 8),
+                       ("cp_async", None)):
+        assert torch.equal(probe.stage_probe(*args, 9, arm, depth), ref)
+    assert torch.equal(probe.stage_probe(*args, 9), ref)
+    assert (probe.mma_probe.launches, probe.stage_probe.launches) == (n0, s0)
+    assert probe.mma_probe.arm_launches == dict.fromkeys(tensor_core.ARMS, 0)
+    assert probe.stage_probe.arm_launches == dict.fromkeys(stage.ARMS, 0)
+    with pytest.raises(ValueError):
+        probe.mma_probe(A, B, 2, 8, 1, "wmma")
+    with pytest.raises(ValueError):
+        probe.stage_probe(*args, 9, "bulk")
+    for depth in (0, 1, 9):
+        with pytest.raises(ValueError):
+            probe.stage_probe(*args, 9, "tma", depth)
+    with pytest.raises(ValueError):
+        probe.stage_probe(*args, 9, "cp_async", 4)
+    big = stage.make_inputs(16, 4, 4, "cpu", M=2)
+    # the default ring (DEPTH slots) does not fit either: no shallower one
+    # is chosen in its place
+    for depth in (stage.DEPTH, None):
+        with pytest.raises(ValueError):
+            probe.stage_probe(*big, 3, "tma", depth)
+    xs, sm, cs = args
+    shifted = torch.zeros(4 * 8 * 128 + 1)[1:].view(4, 8, 128)
+    shifted.copy_(xs[0])
+    with pytest.raises(ValueError):
+        probe.stage_probe([shifted, xs[1]], sm, cs, 9, "tma")
+    assert torch.equal(probe.stage_probe([shifted, xs[1]], sm, cs, 9,
+                                         "cp_async"), ref)
+    Ash = torch.zeros(A.numel() + 1, dtype=torch.bfloat16)[1:].view(A.shape)
+    Ash.copy_(A)
+    with pytest.raises(ValueError):
+        probe.mma_probe(Ash, B, 2, 8, 1, "wgmma")
+
+
 def _capture_specs_kernel(monkeypatch, specs):
     """specs_probe builds its kernel inside ``run``: run it once at the
     smallest size with ``pl.pallas_call`` watched, and keep the body."""

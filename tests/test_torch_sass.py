@@ -53,6 +53,9 @@ def test_loops_nest_and_skip_the_padding_branch():
     assert outer["classes"] == {"barrier": 1, "branch": 2, "convert": 1,
                                 "fp32": 1, "lds": 1, "move": 1}
     assert sass.summary(sass.parse(SAMPLE)["_Z3barv"])["loops"] == []
+    assert s["classes"] == {"barrier": 1, "branch": 4, "convert": 1,
+                            "fp32": 1, "lds": 1, "ldg": 1, "move": 2}
+    assert s["opcodes"]["BRA"] == 3 and s["opcodes"]["IMAD"] == 1
 
 
 @pytest.mark.parametrize("op,cls", [
@@ -60,6 +63,12 @@ def test_loops_nest_and_skip_the_padding_branch():
     ("LDGSTS.E.BYPASS.128", "cp_async"), ("IMAD.MOV.U32", "move"),
     ("IMAD.WIDE", "int"), ("F2FP.BF16.F32.PACK_AB", "convert"),
     ("MUFU.EX2", "mufu"), ("FSETP.GE.AND", "compare"),
-    ("BAR.SYNC.DEFER_BLOCKING", "barrier"), ("HMMA.16816.F32", "other")])
+    ("BAR.SYNC.DEFER_BLOCKING", "barrier"), ("HMMA.16816.F32", "mma"),
+    ("HMMA.16816.F32.BF16", "mma"), ("HGMMA.64x80x16.F32.BF16", "mma"),
+    ("WARPGROUP.DEPBAR.LE", "mma"), ("WARPGROUP.ARRIVE", "mma"),
+    ("UTMALDG.3D", "tma"), ("UTMALDG.2D", "tma"), ("UTMASTG.2D", "tma"),
+    ("UBLKCP.S.G", "tma"), ("LDGDEPBAR", "cp_async"),
+    ("SYNCS.ARRIVE.TRANS64.A1T0", "mbarrier"),
+    ("SYNCS.PHASECHK.TRANS64.TRYWAIT", "mbarrier"), ("NOP", "other")])
 def test_classify_by_longest_prefix(op, cls):
     assert sass.classify(op) == cls

@@ -11,7 +11,15 @@
 // gathers; what would the same placement cost as a [M, K] x [K, N] product
 // on the tensor cores of one SM, operands in shared memory?
 //
-// Design.  The product is computed here, with mma.sync.aligned.m16n8k16
+// Two arms compute it.  ``mma_sync``, the Ampere-era path: warp-level
+// mma.sync fed by ldmatrix, operands staged by the threads themselves.
+// ``wgmma``, Hopper's path: warpgroup-level wgmma reading both operands from
+// shared memory that TMA filled, with mbarriers between a producer warp and
+// the consumer warpgroups.  Comparing the two at the same shapes is what the
+// probe is for.
+//
+// ---- mma_sync arm.
+// The product is computed with mma.sync.aligned.m16n8k16
 // (bf16 operands, fp32 accumulators; inline PTX) on fragments that ldmatrix
 // reads from shared memory, by one block of 8 warps: a block is
 // one SM's tensor cores as the TPU grid was one core's matrix unit, and
@@ -43,10 +51,39 @@
 // memory in K chunks of KC columns, re-read from device memory / L2 each
 // time, with a barrier on either side of the copy; the wrapper picks KC.
 // Rows are padded by 8 elements (16 bytes) against bank conflicts.
+// mma.sync itself tops out near a third of the card's dense bf16 rate.
+//
+// ---- wgmma arm.
+// Orientation.  wgmma computes a 64-row tile, N a multiple of 8 up to 256,
+// k16 a step.  Where M % 64 == 0 it computes out = A B directly: A is the
+// K-major operand, B ([K, N], N contiguous) the MN-major one (transpose
+// bit).  Otherwise, where N % 64 == 0, it computes out^T = B^T A^T: B^T,
+// MN-major, is the 64-row operand and A^T, K-major, the N side -- c3_dot1
+// (80 x 128 x 64) is one m64n80 tile, no padding.  Otherwise M is padded to
+// the next 64 with zero rows (TMA fills what lies outside the tensor).
+// Block: two consumer warpgroups and one producer warp (288 threads).
+// Where the oriented output has two or more 64-row tiles the consumers
+// split them (TPW tiles each); where it has one, they split the R products,
+// each into its own accumulators, summed through shared memory at the end.
+// Accumulators: an m64nN fp32 tile is N / 2 registers a thread; nacc 1
+// chains every product of a tile through one, nacc 8 round-robins over as
+// many as fit in 128 registers (NACC, the wrapper's plan).  Each product
+// (or ring stage) is wgmma.fence, the k16 steps, commit_group, then
+// wait_group 1: one group stays in flight while the next is issued.
+// Operands.  Every tile lands by TMA in 128-byte-swizzled shared memory
+// (tensor maps with CU_TENSOR_MAP_SWIZZLE_128B, 1024-byte-aligned tiles), and
+// wgmma reads it through descriptors of the same swizzle (hopper.cuh:
+// sw128_desc).  A [R, M, K] is a 3-D map, boxes of 64 k x rowsA rows (the
+// padded M direct, M transposed); B [K, N] a 2-D map, boxes of 64 columns x
+// K rows.  Resident (K <= 256 and the lot fits): one mbarrier, every box
+// loaded once.  Streamed (the K = 1280 shapes): a ring of ``stages`` slots,
+// each one product's 64-column k block of A and the matching 64 rows of B,
+// with full (TMA bytes) and empty (consumer) mbarriers; the producer keeps
+// the ring's loads in flight while the consumers run on what has arrived,
+// and a consumer releases a slot once the wgmma group that read it is done.
 //
 // Bound on this card: operations (2 * M * K * N a product against 989
-// TFLOP/s dense bf16); the operands are a few hundred KB read once.  wgmma
-// and TMA arms are for a later change.
+// TFLOP/s dense bf16); the operands are a few hundred KB read once.
 //
 // The fp32 accumulation order (k within a product, products round-robin,
 // accumulators summed at the end) differs from a plain sum's: compared within
@@ -55,6 +92,9 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
+#include "wgmma.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -262,5 +302,332 @@ extern "C" int probe_mma_launch(const void* A_, const void* B_, float* out,
   VOLQ_MMA_CASE(2, 4, 2)
   VOLQ_MMA_CASE(4, 2, 2)
   VOLQ_MMA_CASE(4, 4, 1)
+  return (int)cudaErrorInvalidValue;
+}
+
+// ======================================================================
+// wgmma arm
+
+constexpr int kConsumers = 256;                  // two warpgroups
+constexpr int kWgThreads = kConsumers + 32;      // + the producer warp
+
+// mirrors WgmmaParams in volq_torch/probe/tensor_core.py
+struct WgmmaParams {
+  int R, M, K, N, G;
+  int Tm;        // 64-row tiles of the oriented output (out, or out^T)
+  int split;     // 1: the consumers split the R products (Tm == 1)
+  int resident;  // 1: every operand loaded once; 0: the ring
+  int stages;    // ring slots (streamed)
+  int K64;       // 64-column k blocks of a product, ceil(K / 64)
+  int a_box;     // bytes of one A box: rowsA rows of 128 bytes
+  int b_chunk;   // bytes between B's 64-column chunks (K or 64 rows)
+  int nc;        // B's 64-column chunks, ceil(N / 64)
+  int b_off;     // offset of B in the operands (resident) or in a slot
+  int slot;      // bytes of a ring slot (streamed)
+  int bar_off;   // offset of the mbarriers
+};
+
+// One k16 step of a product on this warpgroup's TPW tiles, into the
+// accumulators ``acc[tt]``.  ``a_kb``: the 64-column k block of A that holds
+// the step (K-major rows of 128 bytes), ``kk`` the step inside it; ``b_k``:
+// the step's 16 rows of B (MN-major, 2048 bytes, chunks b_chunk apart).
+template <int NW, int TPW, int TRANS>
+__device__ __forceinline__ void wg_step(float (&acc)[TPW][NW / 2],
+                                        uint32_t a_kb, int kk, uint32_t b_k,
+                                        int wg, const WgmmaParams& p) {
+#pragma unroll
+  for (int tt = 0; tt < TPW; ++tt) {
+    const int t = p.split ? 0 : wg + 2 * tt;
+    if (t >= p.Tm) continue;
+    if (TRANS == 0) {
+      // out rows 64 t..: A's rows of tile t (8192 bytes a tile) by all of B
+      wgmma<NW, 0, 1>(acc[tt],
+                      sw128_desc(a_kb + t * 8192 + kk * 32, 0, 1024),
+                      sw128_desc(b_k, p.b_chunk, 1024));
+    } else {
+      // out^T rows 64 t..: B's 64-column chunk t by all of A's M rows
+      wgmma<NW, 1, 0>(acc[tt],
+                      sw128_desc(b_k + t * p.b_chunk, p.b_chunk, 1024),
+                      sw128_desc(a_kb + kk * 32, 0, 1024));
+    }
+  }
+}
+
+template <int NW, int TPW, int NACC, int TRANS>
+__global__ void __launch_bounds__(kWgThreads, 1)
+probe_mma_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
+                       const __grid_constant__ CUtensorMap tmB,
+                       float* __restrict__ out, WgmmaParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte-swizzled tiles start on 1024-byte boundaries
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const int nslots = p.resident ? 1 : p.stages;
+  const uint32_t full0 = base + p.bar_off, empty0 = full0 + 8 * nslots;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  if (tid == 0) {
+    for (int s = 0; s < nslots; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, p.split ? 1 : 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // ---- producer: one thread issues every TMA load
+    if ((tid & 31) != 0) return;
+    if (p.resident) {
+      mbar_arrive_tx(full0, p.R * p.K64 * p.a_box + p.nc * p.b_chunk);
+      for (int i = 0; i < p.R; ++i)
+        for (int kb = 0; kb < p.K64; ++kb)
+          tma_load_3d(base + (i * p.K64 + kb) * p.a_box, &tmA, kb * 64, 0, i,
+                      full0);
+      for (int c = 0; c < p.nc; ++c)
+        tma_load_2d(base + p.b_off + c * p.b_chunk, &tmB, c * 64, 0, full0);
+      return;
+    }
+    // the ring, in the consumers' order: the G * R products of the run in
+    // turn (tiles split), or in pairs, one product a warpgroup, k block by
+    // k block alternating between the two (products split)
+    const int total = p.G * p.R;
+    int st = 0;
+    auto produce = [&](int i, int kb) {
+      const int s = st % p.stages;
+      if (st >= p.stages)
+        mbar_wait(empty0 + 8 * s, ((st / p.stages) - 1) & 1);
+      const uint32_t slot = base + s * p.slot, full = full0 + 8 * s;
+      mbar_arrive_tx(full, p.a_box + p.nc * 8192);
+      tma_load_3d(slot, &tmA, kb * 64, 0, i, full);
+      for (int c = 0; c < p.nc; ++c)
+        tma_load_2d(slot + p.b_off + c * 8192, &tmB, c * 64, kb * 64, full);
+      ++st;
+    };
+    if (p.split) {
+      for (int q = 0; 2 * q < total; ++q)
+        for (int kb = 0; kb < p.K64; ++kb)
+          for (int w = 0; w < 2 && 2 * q + w < total; ++w)
+            produce((2 * q + w) % p.R, kb);
+    } else {
+      for (int f = 0; f < total; ++f)
+        for (int kb = 0; kb < p.K64; ++kb) produce(f % p.R, kb);
+    }
+    return;
+  }
+
+  // ---- consumers.  The warpgroup index goes through a shuffle so that
+  // the compiler knows it is uniform across the warp: wgmma under a branch
+  // it cannot prove uniform is serialized
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0), tw = tid & 127;
+  float acc[NACC][TPW][NW / 2];
+#pragma unroll
+  for (int j = 0; j < NACC; ++j)
+#pragma unroll
+    for (int tt = 0; tt < TPW; ++tt)
+#pragma unroll
+      for (int r = 0; r < NW / 2; ++r) {
+        acc[j][tt][r] = 0.f;
+        fence_operand(acc[j][tt][r]);
+      }
+  // this warpgroup's products: all G * R in turn, or every other one
+  const int total = p.G * p.R;
+  const int nloc = p.split ? (total - wg + 1) >> 1 : total;
+  const int nk = p.K >> 4;
+  int prev = -1;  // ring slot of the stage this warpgroup consumed last
+  if (p.resident) mbar_wait(full0, 0);
+  for (int q0 = 0; q0 < nloc; q0 += NACC) {
+#pragma unroll
+    for (int j = 0; j < NACC; ++j) {
+      const int q = q0 + j;
+      if (q >= nloc) break;
+      const int i = (p.split ? 2 * q + wg : q) % p.R;
+      if (p.resident) {
+        const uint32_t a0 = base + i * p.K64 * p.a_box;
+        wgmma_fence();
+        for (int ks = 0; ks < nk; ++ks)
+          wg_step<NW, TPW, TRANS>(acc[j], a0 + (ks >> 2) * p.a_box, ks & 3,
+                                  base + p.b_off + ks * 2048, wg, p);
+        wgmma_commit();
+        wgmma_wait<1>();
+        continue;
+      }
+      const int pair = total - 2 * q < 2 ? 1 : 2;
+      for (int kb = 0; kb < p.K64; ++kb) {
+        const int st = p.split ? 2 * q * p.K64 + kb * pair + wg
+                               : q * p.K64 + kb;
+        const int s = st % p.stages;
+        mbar_wait(full0 + 8 * s, (st / p.stages) & 1);
+        const uint32_t slot = base + s * p.slot;
+        const int kn = nk - 4 * kb < 4 ? nk - 4 * kb : 4;
+        wgmma_fence();
+        for (int ks = 0; ks < kn; ++ks)
+          wg_step<NW, TPW, TRANS>(acc[j], slot, ks,
+                                  slot + p.b_off + ks * 2048, wg, p);
+        wgmma_commit();
+        // the group before this one is done: its slot is free
+        wgmma_wait<1>();
+        if (prev >= 0 && tw == 0) mbar_arrive(empty0 + 8 * prev);
+        prev = s;
+      }
+    }
+  }
+  wgmma_wait<0>();
+  // the last slot too: the producer may still need it for the other
+  // warpgroup's stages
+  if (prev >= 0 && tw == 0) mbar_arrive(empty0 + 8 * prev);
+#pragma unroll
+  for (int j = 0; j < NACC; ++j)
+#pragma unroll
+    for (int tt = 0; tt < TPW; ++tt)
+#pragma unroll
+      for (int r = 0; r < NW / 2; ++r) fence_operand(acc[j][tt][r]);
+#pragma unroll
+  for (int j = 1; j < NACC; ++j)
+#pragma unroll
+    for (int tt = 0; tt < TPW; ++tt)
+#pragma unroll
+      for (int r = 0; r < NW / 2; ++r) acc[0][tt][r] += acc[j][tt][r];
+
+  if (p.split) {
+    // both warpgroups are past their last wgmma: the operands are dead, and
+    // warpgroup 1's sum goes through them to warpgroup 0
+    float* red = reinterpret_cast<float*>(smem_raw + (base - raw));
+    bar_sync(1, kConsumers);
+    if (wg == 1) {
+#pragma unroll
+      for (int r = 0; r < NW / 2; ++r) red[r * 128 + tw] = acc[0][0][r];
+    }
+    bar_sync(1, kConsumers);
+    if (wg == 1) return;
+#pragma unroll
+    for (int r = 0; r < NW / 2; ++r) acc[0][0][r] += red[r * 128 + tw];
+  }
+
+  // store: row 16 * warp + lane / 4 (+ 8), columns 8 j + 2 (lane % 4) + 0, 1
+  float* o = out + (size_t)blockIdx.x * p.M * p.N;
+  const int lane = tw & 31, row0 = 16 * (tw >> 5) + (lane >> 2);
+#pragma unroll
+  for (int tt = 0; tt < TPW; ++tt) {
+    const int t = p.split ? 0 : wg + 2 * tt;
+    if (t >= p.Tm) continue;
+#pragma unroll
+    for (int jn = 0; jn < NW / 8; ++jn)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 64 * t + row0 + 8 * h, col = 8 * jn + 2 * (lane & 3);
+        const float v0 = acc[0][tt][4 * jn + 2 * h];
+        const float v1 = acc[0][tt][4 * jn + 2 * h + 1];
+        if (TRANS == 0) {
+          if (row < p.M)
+            *reinterpret_cast<float2*>(o + (size_t)row * p.N + col) =
+                make_float2(v0, v1);
+        } else {
+          o[(size_t)col * p.N + row] = v0;
+          o[(size_t)(col + 1) * p.N + row] = v1;
+        }
+      }
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = (EncodeTiled)f;
+  }
+  return fn;
+}
+
+// bf16 tensor map, 128-byte swizzle, zeros outside the tensor
+static int encode(CUtensorMap* map, const void* ptr, int rank,
+                  const cuuint64_t* dims, const cuuint64_t* strides,
+                  const cuuint32_t* box) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -1;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                  const_cast<void*>(ptr), dims, strides, box, ones,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -1000 - (int)r;
+}
+
+template <int NW, int TPW, int NACC, int TRANS>
+static int launch_wg(const CUtensorMap& a, const CUtensorMap& b, float* out,
+                     const WgmmaParams& p, int blocks, int smem,
+                     cudaStream_t st) {
+  auto k = probe_mma_wgmma_kernel<NW, TPW, NACC, TRANS>;
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  k<<<blocks, kWgThreads, smem, st>>>(a, b, out, p);
+  return (int)cudaGetLastError();
+}
+
+// one instantiation per (wgmma N, tiles a warpgroup, orientation), chained
+// (NACC 1) and round-robin (the plan's NACC)
+#define VOLQ_WG_CASE(nw, tpw, tr, pipe)                                       \
+  if (NW == nw && TPW == tpw && trans == tr) {                               \
+    if (nacc == 1) return launch_wg<nw, tpw, 1, tr>(ma, mb, out, p, blocks,  \
+                                                    smem, st);               \
+    if (nacc == pipe) return launch_wg<nw, tpw, pipe, tr>(ma, mb, out, p,    \
+                                                          blocks, smem, st); \
+  }
+
+// A [R, M, K] and B [K, N] bf16, 16-byte aligned; ``rowsA`` the rows of an
+// A box (the padded M, or M transposed); the rest from the wrapper's plan.
+// Returns a CUDA error, or -1 (no cuTensorMapEncodeTiled) / -1000 - CUresult
+// (a tensor map refused).
+extern "C" int probe_mma_wgmma_launch(const void* A, const void* B,
+                                      float* out, WgmmaParams p, int NW,
+                                      int TPW, int nacc, int trans, int rowsA,
+                                      int blocks, int smem, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (blocks < 1 || p.G < 0 || p.K % 16 || rowsA < 8 || rowsA > 256 ||
+      (p.resident && p.K > 256) || (!p.resident && p.stages < 2))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ma, mb;
+  const cuuint64_t adim[3] = {(cuuint64_t)p.K, (cuuint64_t)p.M,
+                              (cuuint64_t)p.R};
+  const cuuint64_t astr[2] = {(cuuint64_t)p.K * 2,
+                              (cuuint64_t)p.M * p.K * 2};
+  const cuuint32_t abox[3] = {64, (cuuint32_t)rowsA, 1};
+  int r = encode(&ma, A, 3, adim, astr, abox);
+  if (r) return r;
+  const cuuint64_t bdim[2] = {(cuuint64_t)p.N, (cuuint64_t)p.K};
+  const cuuint64_t bstr[1] = {(cuuint64_t)p.N * 2};
+  const cuuint32_t bbox[2] = {64, (cuuint32_t)(p.resident ? p.K : 64)};
+  r = encode(&mb, B, 2, bdim, bstr, bbox);
+  if (r) return r;
+  VOLQ_WG_CASE(16, 1, 0, 8)
+  VOLQ_WG_CASE(32, 1, 0, 8)
+  VOLQ_WG_CASE(64, 1, 0, 4)
+  VOLQ_WG_CASE(80, 1, 0, 3)
+  VOLQ_WG_CASE(128, 1, 0, 2)
+  VOLQ_WG_CASE(128, 2, 0, 1)
+  VOLQ_WG_CASE(256, 1, 0, 1)
+  VOLQ_WG_CASE(16, 1, 1, 8)
+  VOLQ_WG_CASE(32, 1, 1, 8)
+  VOLQ_WG_CASE(80, 1, 1, 3)
+  VOLQ_WG_CASE(120, 1, 1, 2)
+  VOLQ_WG_CASE(120, 2, 1, 1)
   return (int)cudaErrorInvalidValue;
 }

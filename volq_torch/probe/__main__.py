@@ -4,8 +4,9 @@
 
 With no name all three run.  Prints the card's name and power limit, then
 per probe one line per point: ns per product and TFLOP/s per shape on one
-SM and on all of them (mma), ns per step per K (stage), ns per window per
-alignment (window).  Needs a CUDA device.
+SM and on all of them, on the mma_sync and the wgmma arm (mma); ns per
+step per K on the cp_async arm and on the tma arm at ring depths 2, 4 and
+8 (stage); ns per window per alignment (window).  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -19,8 +20,9 @@ def run_mma(card: str):
     from volq_torch.probe import tensor_core
     recs = tensor_core.sweep()
     for r in recs:
-        print(f"[probe] mma {r['tag']:24s} {r['M']:4d} x {r['K']:4d} x "
-              f"{r['N']:3d} blocks {r['blocks']:3d} nacc {r['nacc']} "
+        print(f"[probe] mma {r['arm']:8s} {r['tag']:24s} {r['M']:4d} x "
+              f"{r['K']:4d} x {r['N']:3d} blocks {r['blocks']:3d} nacc "
+              f"{r['nacc']} "
               f"{'resident' if r['resident'] else 'KC %d' % r['KC']:8s} "
               f"R {r['R']} G {r['G']:6d}: {r['ns_per_dot']:9.1f} ns/dot "
               f"{r['tflops']:8.2f} TFLOP/s  [{card}]")
@@ -31,7 +33,8 @@ def run_stage(card: str):
     from volq_torch.probe import stage
     recs = stage.sweep()
     for r in recs:
-        print(f"[probe] stage K {r['K']:2d} small {r['small']} const "
+        print(f"[probe] stage {r['arm']:8s} depth {r['depth']} K "
+              f"{r['K']:2d} small {r['small']} const "
               f"{r['const']} G {r['G']:5d}: {r['ms']:8.3f} ms "
               f"{r['ns_per_step']:8.1f} ns/step  [{card}]")
     return recs

@@ -1,6 +1,10 @@
 """The tensor-core probe (counterpart of ``bench/mxu_probe.py:time_shape``):
 repeated small bf16 products with fp32 accumulation on one SM's tensor
-cores, at the warp engine's hat-matrix shapes (``csrc/probe_mma.cu``)."""
+cores, at the warp engine's hat-matrix shapes (``csrc/probe_mma.cu``), on
+two arms: ``mma_sync`` (warp-level mma.sync fed by ldmatrix, operands
+staged by the threads) and ``wgmma`` (warpgroup-level wgmma on operands
+that TMA loads into 128-byte-swizzled shared memory, the K = 1280 shapes
+through an mbarrier ring)."""
 from __future__ import annotations
 
 import ctypes
@@ -13,7 +17,21 @@ from volq_torch._build import check_tensor, ptr, stream
 # shared memory a block can use on the card (bytes)
 SMEM_BYTES = 232448
 N_SM = 132
-PAD = 8          # bf16 elements of padding per shared-memory row
+PAD = 8          # bf16 elements of padding per shared-memory row (mma_sync)
+ARMS = ("mma_sync", "wgmma")
+# the wgmma arm's instantiations (csrc/probe_mma.cu, VOLQ_WG_CASE): (wgmma
+# N, 64-row tiles a consumer warpgroup, transposed) -> the accumulators a
+# tile under nacc = 8, as many m64nN fp32 tiles (N / 2 registers a thread
+# each) as fit in ACC_REGS, at most 8
+ACC_REGS = 128
+WGMMA_CONFIGS = {
+    (16, 1, False): 8, (32, 1, False): 8, (64, 1, False): 4,
+    (80, 1, False): 3, (128, 1, False): 2, (128, 2, False): 1,
+    (256, 1, False): 1,
+    (16, 1, True): 8, (32, 1, True): 8, (80, 1, True): 3,
+    (120, 1, True): 2, (120, 2, True): 1,
+}
+RING_MAX = 8     # slots of the wgmma arm's ring
 
 # the reference's shapes (bench/mxu_probe.py): tag, M, K, N
 SHAPES = (
@@ -71,6 +89,90 @@ class Plan(NamedTuple):
     smem: int        # dynamic shared memory, bytes
 
 
+class WgmmaParams(ctypes.Structure):
+    """Mirrors ``WgmmaParams`` in csrc/probe_mma.cu."""
+    _fields_ = [(n, ctypes.c_int) for n in
+                ("R", "M", "K", "N", "G", "Tm", "split", "resident",
+                 "stages", "K64", "a_box", "b_chunk", "nc", "b_off", "slot",
+                 "bar_off")]
+
+
+class WgmmaPlan(NamedTuple):
+    """How the wgmma arm cuts one shape (see csrc/probe_mma.cu)."""
+    trans: bool      # computes out^T = B^T A^T (64-row tiles along N)
+    pad: int         # zero rows added to M (direct orientation only)
+    n: int           # wgmma N: N direct, M transposed
+    Tm: int          # 64-row tiles of the oriented output
+    tpw: int         # tiles a consumer warpgroup holds
+    split: bool      # the two warpgroups split the products (Tm == 1)
+    nacc: int        # accumulators a tile in use
+    acc_regs: int    # fp32 accumulator registers a consumer thread
+    resident: bool   # every operand loaded once; else the ring
+    stages: int      # ring slots (0 when resident)
+    KC: int          # K columns a ring stage (K when resident)
+    rowsA: int       # rows of A's TMA box (the padded M, or M)
+    boxes: tuple     # TMA boxes, innermost first: A's, B's
+    useful: float    # share of the issued multiply-adds that are M x N's
+    smem: int        # dynamic shared memory, bytes
+    params: dict     # the kernel's WgmmaParams fields but R, M, K, N, G
+
+
+def wgmma_plan(R: int, M: int, K: int, N: int, nacc: int) -> WgmmaPlan:
+    """Orientation, tiles, accumulators and operand layout of the wgmma
+    arm for ``R`` products of [M, K] x [K, N].  Direct where M % 64 == 0,
+    transposed where N % 64 == 0, else M padded to the next 64."""
+    if nacc not in (1, 8):
+        raise ValueError("nacc must be 1 (chained) or 8 (round-robin)")
+    if K % 16 or N % 16 or min(R, M, K, N) < 1:
+        raise ValueError("K and N must be multiples of 16")
+    if M % 64 == 0:
+        trans, pad, n = False, 0, N
+    elif N % 64 == 0:
+        trans, pad, n = True, 0, M
+    else:
+        trans, pad, n = False, -M % 64, N
+    rowsA = M + pad
+    Tm = (N if trans else rowsA) // 64
+    if n % 8 or n > 256 or Tm > 4:
+        raise ValueError(f"{M} x {K} x {N}: wgmma's N side is {n} (a "
+                         f"multiple of 8 up to 256 needed) and {Tm} 64-row "
+                         "tiles (at most 4)")
+    tpw = 1 if Tm <= 2 else 2
+    key = (n, tpw, trans)
+    if key not in WGMMA_CONFIGS:
+        raise ValueError(f"{M} x {K} x {N}: no wgmma instantiation for N "
+                         f"{n}, {tpw} tiles a warpgroup, transposed "
+                         f"{trans}")
+    split = Tm == 1
+    nacc_eff = 1 if nacc == 1 else WGMMA_CONFIGS[key]
+    K64, nc, a_box = -(-K // 64), -(-N // 64), rowsA * 128
+    red = 256 * n if split else 0     # warpgroup 1's sum, fp32
+    common = dict(Tm=Tm, split=int(split), K64=K64, a_box=a_box, nc=nc)
+    if K <= 256:
+        b_off = R * K64 * a_box
+        bar_off = max(b_off + nc * K * 128, red)
+        smem = 1024 + bar_off + 16
+        if smem <= SMEM_BYTES:
+            return WgmmaPlan(
+                trans, pad, n, Tm, tpw, split, nacc_eff,
+                nacc_eff * tpw * n // 2, True, 0, K, rowsA,
+                ((64, rowsA, 1), (64, K)), M * N / (Tm * 64 * n), smem,
+                dict(common, resident=1, stages=0, b_chunk=K * 128,
+                     b_off=b_off, slot=0, bar_off=bar_off))
+    slot = a_box + nc * 8192
+    stages = min(RING_MAX, (SMEM_BYTES - 1024 - 16 * RING_MAX) // slot)
+    # products split: each warpgroup holds the slot it read last until its
+    # next stage arrives, so the producer needs a third
+    if stages < (3 if split else 2) or red > stages * slot:
+        raise ValueError(f"no ring of {M} x {K} x {N} fits shared memory")
+    return WgmmaPlan(
+        trans, pad, n, Tm, tpw, split, nacc_eff, nacc_eff * tpw * n // 2,
+        False, stages, 64, rowsA, ((64, rowsA, 1), (64, 64)),
+        M * N / (Tm * 64 * n), 1024 + stages * slot + 16 * stages,
+        dict(common, resident=0, stages=stages, b_chunk=8192, b_off=a_box,
+             slot=slot, bar_off=stages * slot))
+
+
 def _pow2_at_least(x: int) -> int:
     return 1 << max(x - 1, 0).bit_length()
 
@@ -120,12 +222,21 @@ def mma_probe_plain(A, B, G: int, blocks: int = 1) -> torch.Tensor:
     return one.to(torch.float32).expand(blocks, -1, -1)
 
 
-def mma_probe(A, B, G: int, nacc: int = 1, blocks: int = 1) -> torch.Tensor:
+def plan_for(arm: str, R: int, M: int, K: int, N: int, nacc: int):
+    """The plan of ``arm`` (``mma_plan`` or ``wgmma_plan``)."""
+    if arm not in ARMS:
+        raise ValueError(f"arm must be one of {ARMS}, not {arm!r}")
+    return (mma_plan if arm == "mma_sync" else wgmma_plan)(R, M, K, N, nacc)
+
+
+def mma_probe(A, B, G: int, nacc: int = 1, blocks: int = 1,
+              arm: str = "wgmma") -> torch.Tensor:
     """``out[blocks, M, N]`` fp32 with ``out[b] = sum_{g<G} sum_{i<R} A[i] @
     B`` for A [R, M, K] and B [K, N] bf16, computed by each of ``blocks``
-    thread blocks on its SM's tensor cores.  ``nacc`` = 1 chains every
-    product of an output tile through one accumulator, 8 round-robins
-    them over up to 8 (``mma_plan(...).nacc`` says how many fit)."""
+    thread blocks on its SM's tensor cores, by ``arm``: ``"wgmma"``
+    (wgmma on TMA-loaded operands) or ``"mma_sync"``.  ``nacc`` = 1 chains
+    every product of an output tile through one accumulator, 8 round-robins
+    them over up to 8 (the plan's ``nacc`` says how many fit)."""
     dev = A.device
     bf = (torch.bfloat16,)
     if A.dim() != 3 or B.dim() != 2:
@@ -136,28 +247,50 @@ def mma_probe(A, B, G: int, nacc: int = 1, blocks: int = 1) -> torch.Tensor:
     check_tensor(B, "B", bf, (K, N), dev)
     if G < 0 or blocks < 1:
         raise ValueError("G >= 0 and blocks >= 1")
-    plan = mma_plan(R, M, K, N, nacc)
+    plan = plan_for(arm, R, M, K, N, nacc)
+    if arm == "wgmma" and (A.data_ptr() % 16 or B.data_ptr() % 16):
+        raise ValueError("the wgmma arm's TMA needs A and B 16-byte aligned")
     if dev.type != "cuda":
         return mma_probe_plain(A, B, G, blocks)
     from volq_torch._build import load
-    fn = load("probe_mma").probe_mma_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [MmaParams] \
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    p = MmaParams(R=R, M=M, K=K, N=N, G=G, Mp=plan.Mp, KC=plan.KC,
-                  resident=int(plan.resident), lda=plan.KC + PAD,
-                  ldb=N + PAD, WGM=plan.WGM, WGN=plan.WGN)
-    # the kernel writes whole 16-row tiles: the pad rows come back too
-    out = torch.empty((blocks, plan.Mp, N), dtype=torch.float32, device=dev)
-    err = fn(ptr(A), ptr(B), ptr(out), p, plan.WM, plan.WN, plan.nacc,
-             blocks, plan.smem, stream(dev))
+    lib = load("probe_mma")
+    if arm == "mma_sync":
+        fn = lib.probe_mma_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [MmaParams] \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        p = MmaParams(R=R, M=M, K=K, N=N, G=G, Mp=plan.Mp, KC=plan.KC,
+                      resident=int(plan.resident), lda=plan.KC + PAD,
+                      ldb=N + PAD, WGM=plan.WGM, WGN=plan.WGN)
+        # the kernel writes whole 16-row tiles: the pad rows come back too
+        out = torch.empty((blocks, plan.Mp, N), dtype=torch.float32,
+                          device=dev)
+        err = fn(ptr(A), ptr(B), ptr(out), p, plan.WM, plan.WN, plan.nacc,
+                 blocks, plan.smem, stream(dev))
+    else:
+        fn = lib.probe_mma_wgmma_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [WgmmaParams] \
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        p = WgmmaParams(R=R, M=M, K=K, N=N, G=G, **plan.params)
+        out = torch.empty((blocks, M, N), dtype=torch.float32, device=dev)
+        err = fn(ptr(A), ptr(B), ptr(out), p, plan.n, plan.tpw, plan.nacc,
+                 int(plan.trans), plan.rowsA, blocks, plan.smem, stream(dev))
+    if err == -1:
+        raise RuntimeError("probe_mma: the driver gives no "
+                           "cuTensorMapEncodeTiled")
+    if err <= -1000:
+        raise RuntimeError(f"probe_mma: tensor map refused (CUresult "
+                           f"{-1000 - err})")
     if err:
         raise RuntimeError(f"probe_mma launch failed: CUDA error {err}")
     mma_probe.launches += 1
+    mma_probe.arm_launches[arm] += 1
     return out[:, :M]
 
 
 mma_probe.launches = 0
+mma_probe.arm_launches = dict.fromkeys(ARMS, 0)
 
 
 def make_inputs(R: int, M: int, K: int, N: int, device, seed: int = 0):
@@ -183,29 +316,38 @@ def size_run(M: int, K: int, N: int, target_ms: float = 12.0):
     return R, G
 
 
-def time_shape(M: int, K: int, N: int, nacc: int = 1, blocks: int = 1):
-    """Median (of 5 launches) seconds per product of [M, K] x [K, N] bf16
-    -> fp32 on one block, and the launch's (R, G, plan).  On the card."""
+def time_shape(M: int, K: int, N: int, nacc: int = 1, blocks: int = 1,
+               arm: str = "wgmma"):
+    """Median (of 5 graph replays of a launch) device seconds per product
+    of [M, K] x [K, N] bf16 -> fp32 on one block by ``arm``, and the
+    launch's (R, G, plan).  On the card.  Both arms take the same (R, G):
+    ``size_run``'s."""
     from volq_torch.probe import median_ms
     R, G = size_run(M, K, N)
     A, B = make_inputs(R, M, K, N, "cuda")
-    ms = median_ms(lambda: mma_probe(A, B, G, nacc, blocks))
-    return ms * 1e-3 / (R * G), R, G, mma_plan(R, M, K, N, nacc)
+    ms = median_ms(lambda: mma_probe(A, B, G, nacc, blocks, arm))
+    return ms * 1e-3 / (R * G), R, G, plan_for(arm, R, M, K, N, nacc)
 
 
 def sweep():
     """Time ``SHAPES`` chained and ``PIPE_SHAPES`` round-robin, on one block
-    and on one per SM.  Returns a list of dicts; ``tflops`` counts 2*M*K*N
-    a product (as the reference does) times the blocks."""
+    and on one per SM, on each of ``ARMS``.  Returns a list of dicts;
+    ``tflops`` counts 2*M*K*N a product (as the reference does) times the
+    blocks."""
     recs = []
     for shapes, nacc in ((SHAPES, 1), (PIPE_SHAPES, 8)):
         for tag, M, K, N in shapes:
             for nb in (1, N_SM):
-                per_dot, R, G, plan = time_shape(M, K, N, nacc, nb)
-                recs.append(dict(
-                    tag=tag + (":pipe8" if nacc == 8 else ""), M=M, K=K,
-                    N=N, blocks=nb, nacc=plan.nacc,
-                    resident=plan.resident, KC=plan.KC, R=R, G=G,
-                    ns_per_dot=per_dot * 1e9,
-                    tflops=2.0 * M * K * N * nb / per_dot / 1e12))
+                for arm in ARMS:
+                    per_dot, R, G, plan = time_shape(M, K, N, nacc, nb, arm)
+                    rec = dict(
+                        tag=tag + (":pipe8" if nacc == 8 else ""), arm=arm,
+                        M=M, K=K, N=N, blocks=nb, nacc=plan.nacc,
+                        resident=plan.resident, KC=plan.KC, R=R, G=G,
+                        ns_per_dot=per_dot * 1e9,
+                        tflops=2.0 * M * K * N * nb / per_dot / 1e12)
+                    if arm == "wgmma":
+                        rec.update(trans=plan.trans, n=plan.n,
+                                   stages=plan.stages, useful=plan.useful)
+                    recs.append(rec)
     return recs

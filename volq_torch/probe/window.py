@@ -94,8 +94,9 @@ window_probe.launches = 0
 
 
 def sweep():
-    """Time every arm on the reference's canvas and N, on the card (median
-    of 5 launches).  Returns a list of dicts (align, ms, ns_per_window)."""
+    """Time every arm on the reference's canvas and N, on the card (device
+    time: the median of 5 graph replays of a launch).  Returns a list of
+    dicts (align, ms, ns_per_window)."""
     from volq_torch.probe import median_ms
     recs = []
     for align in ARMS:

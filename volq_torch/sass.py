@@ -9,9 +9,11 @@ registers and local (spill) bytes (``cuobjdump -res-usage``), and each loop
 -- a backward branch and the code it jumps back over -- with its
 instruction count, nested loops included, and that count by instruction
 class (shared / global loads and stores, fp32 arithmetic, conversions,
-special functions, integer, compares and selects, barriers, branches).
-A loop body's count is static: code that a forward branch skips is counted
-too.  Needs the CUDA toolkit (``cuobjdump``), not a card.
+special functions, integer, compares and selects, barriers, branches, the
+asynchronous copies -- cp.async, TMA, mbarriers -- and the tensor-core
+products, mma.sync's HMMA and wgmma's HGMMA), and the whole function's
+count by class.  A loop body's count is static: code that a forward branch
+skips is counted too.  Needs the CUDA toolkit (``cuobjdump``), not a card.
 """
 from __future__ import annotations
 
@@ -28,7 +30,10 @@ CLASSES = (
     ("sts", ("STS",)),
     ("ldg", ("LDG", "LD", "LDC", "LDL")),
     ("stg", ("STG", "ST", "STL", "RED", "ATOM", "ATOMG", "ATOMS")),
-    ("cp_async", ("LDGSTS", "LDGDEPBAR", "DEPBAR", "UBLKCP", "SYNCS")),
+    ("cp_async", ("LDGSTS", "LDGDEPBAR", "DEPBAR")),
+    ("tma", ("UTMALDG", "UTMASTG", "UTMAPF", "UBLKCP")),
+    ("mbarrier", ("SYNCS",)),
+    ("mma", ("HMMA", "HGMMA", "WARPGROUP")),
     ("fp32", ("FADD", "FMUL", "FFMA", "FMNMX", "FSET", "FSWZADD")),
     ("convert", ("F2F", "F2FP", "F2I", "I2F", "FRND", "I2FP", "F2IP")),
     ("mufu", ("MUFU",)),
@@ -106,21 +111,28 @@ def loops(insns) -> list:
 
 
 def summary(insns) -> dict:
-    """Instruction count and loops (with their class counts) of one
-    function."""
+    """Instruction count, counts by class and by opcode (its first dotted
+    part), and loops (with theirs) of one function."""
     recs = []
     spans = loops(insns)
     for j, i in spans:
         body = insns[j:i + 1]
-        hist: dict[str, int] = {}
-        for _, op, _, _ in body:
-            c = classify(op)
-            hist[c] = hist.get(c, 0) + 1
         depth = sum(1 for a, b in spans if a <= j and i <= b) - 1
         recs.append({"start": insns[j][0], "end": insns[i][0],
-                     "insns": len(body), "depth": depth,
-                     "classes": dict(sorted(hist.items()))})
-    return {"insns": len(insns), "loops": recs}
+                     "insns": len(body), "depth": depth, **_counts(body)})
+    return {"insns": len(insns), **_counts(insns), "loops": recs}
+
+
+def _counts(insns) -> dict:
+    """Counts of ``insns`` by class and by opcode (its first dotted part)."""
+    classes: dict[str, int] = {}
+    ops: dict[str, int] = {}
+    for _, op, _, _ in insns:
+        c, o = classify(op), op.split(".")[0]
+        classes[c] = classes.get(c, 0) + 1
+        ops[o] = ops.get(o, 0) + 1
+    return {"classes": dict(sorted(classes.items())),
+            "opcodes": dict(sorted(ops.items()))}
 
 
 def demangle(names) -> dict:
@@ -192,6 +204,8 @@ def main(argv=None) -> int:
         print(f"[sass] {r['function']}: {r['insns']} instructions, "
               f"{rs.get('REG', '?')} registers, local {rs.get('LOCAL', '?')}"
               f" B")
+        print("[sass]   all: " + " ".join(
+            f"{k} {v}" for k, v in r["classes"].items()))
         for lp in r["loops"]:
             print(f"[sass]   loop {lp['start']:#06x}-{lp['end']:#06x} depth "
                   f"{lp['depth']}: {lp['insns']} instructions "

@@ -15,11 +15,16 @@ final result line):
      plan -- transposed, padded, streamed through the ring, n16, N 256 --
      nacc 1 and 8, 1 and 132 blocks), both arms of probe_stage (cp_async;
      tma at ring depths 2, 4 and 8 where the ring fits) bit-equal (K 1, 4,
-     12, with small and const stacks) and probe_window bit-equal on the
-     reference's 4096 windows of a 1088 x 2048 canvas at every alignment;
-     read the SASS of the two probes (python -m volq_torch.sass): HGMMA
-     and UTMALDG in every wgmma-arm function, UBLKCP in the tma arm and no
-     block barrier (BAR) in its loops; then run the probes' entry point
+     12, with small and const stacks) and both arms of probe_window
+     (cp_async at align 128, 16, 8, 4; tma also at 2 and 1) bit-equal on
+     the reference's 4096 windows of a 1088 x 2048 canvas and on the
+     heavy-overlap cases (window.overlap_cases: one band, identical
+     windows, x near the edge, x at 0 or W - 128); read the SASS of the
+     probes (python -m volq_torch.sass): HGMMA and UTMALDG in every
+     wgmma-arm function, UBLKCP in probe_stage's tma arm, UTMALDG and
+     UTMASTG in probe_window's, LDGSTS in their cp_async arms, and no block
+     barrier (BAR) in the loops of either arm of probe_stage and
+     probe_window; then run the probes' entry point
      (python -m volq_torch.probe, in process) from zeroed launch counters:
      every probe and every arm must have launched, and no printed
      tensor-core rate may exceed the card's 989 TFLOP/s;
@@ -134,7 +139,12 @@ final result line):
      read under the launch; probe_mma's library time one torch.matmul of
      the same sums, the R operands side by side along K ([Bt, M, R K] @
      [R K, N], B stacked R times), Bt copies whose operands stay in L2,
-     replayed from a CUDA graph and scaled per product),
+     replayed from a CUDA graph and scaled per product; probe_window's
+     bound the larger of bytes and its chain -- the longest run of
+     windows each overlapping an earlier one, times one dependent L2 round
+     trip timed on the card -- and its library time the fastest of
+     index_add_, scatter_add_ and index_put_(accumulate=True) at the
+     windows' cell indices, held bit-equal to the plain version),
      the card line, and last the result line {"ok": true, "device":
      {...}}.
 
@@ -921,31 +931,50 @@ def check_probes(errs):
                     errs.get(("probe_stage", arm), 0.0), d)
     errs["probe_mma"] = errs["probe_mma", "wgmma"]
     errs["probe_stage"] = errs["probe_stage", "tma"]
-    for align in window.ARMS:
-        off = torch.from_numpy(window.make_offsets(align)).to(dev)
-        out = probe.window_probe(
-            torch.zeros((window.H, window.W), device=dev), off, align)
-        ref = probe.window_probe_plain(
-            torch.zeros((window.H, window.W), device=dev), off, align)
-        torch.cuda.synchronize()
-        d = float((out - ref).abs().max())
-        print(f"[kernels] probe_window align {align} N {window.N} canvas "
-              f"{window.H} x {window.W}: bit-equal {torch.equal(out, ref)}, "
-              f"max diff {d:.3e}, deepest overlap {int(out.max())}")
-        assert torch.equal(out, ref), "probe_window differs"
-        assert float(out.sum()) == window.N * window.WH * window.WW
-        errs["probe_window"] = max(errs["probe_window"], d)
+    # probe_window: both arms at every alignment each takes, on the
+    # reference's 4096 windows and on the heavy-overlap cases
+    for align in window.ALIGNS["tma"]:
+        cases = {"reference": window.make_offsets(align),
+                 **window.overlap_cases(align, seed=align)}
+        for case, o in cases.items():
+            off = torch.from_numpy(o).to(dev)
+            ref = probe.window_probe_plain(
+                torch.zeros((window.H, window.W), device=dev), off, align)
+            for arm in window.ARMS:
+                if align not in window.ALIGNS[arm]:
+                    continue
+                out = probe.window_probe(
+                    torch.zeros((window.H, window.W), device=dev), off,
+                    align, arm=arm)
+                torch.cuda.synchronize()
+                d = float((out - ref).abs().max())
+                print(f"[kernels] probe_window {arm} align {align} {case} N "
+                      f"{window.N} canvas {window.H} x {window.W}: bit-equal "
+                      f"{torch.equal(out, ref)}, max diff {d:.3e}, deepest "
+                      f"overlap {int(out.max())}")
+                assert torch.equal(out, ref), f"probe_window {arm} differs"
+                assert float(out.sum()) == window.N * window.WH * window.WW
+                errs["probe_window", arm] = max(
+                    errs.get(("probe_window", arm), 0.0), d)
+    errs["probe_window"] = errs["probe_window", "tma"]
 
 
 def check_probe_sass():
     """The arms run what they claim: HGMMA and UTMALDG in every function
     of probe_mma's wgmma arm (HMMA in the mma_sync arm's), UBLKCP in
-    probe_stage's tma arm and no block barrier (BAR) in its loops."""
+    probe_stage's tma arm and no block barrier (BAR) in its loops,
+    UTMALDG and UTMASTG in probe_window's tma arm, LDGSTS in its cp_async
+    arm and no BAR on any cycle of the control flow through either arm's
+    walk."""
     from volq_torch import sass
     for name, arms in (("probe_mma", {"wgmma": ("HGMMA", "UTMALDG"),
                                       "probe_mma_kernel": ("HMMA",)}),
                        ("probe_stage", {"tma": ("UBLKCP", "SYNCS"),
-                                        "probe_stage_kernel": ("LDGSTS",)})):
+                                        "probe_stage_kernel": ("LDGSTS",)}),
+                       ("probe_window", {
+                           "probe_window_tma_kernel": ("UTMALDG", "UTMASTG",
+                                                       "SYNCS"),
+                           "probe_window_kernel": ("LDGSTS",)})):
         recs = sass.analyse(name)
         for match, want in arms.items():
             fns = [r for r in recs if match in r["function"]]
@@ -963,6 +992,28 @@ def check_probe_sass():
             assert not bars, f"a block barrier in the tma arm's loops: {bars}"
             print(f"[sass] probe_stage tma: {len(tma['loops'])} loops, no "
                   f"BAR in any")
+        if name == "probe_window":
+            # a walk is the cycle of the control-flow graph that holds its
+            # copies: every instruction that can run again after them.  The
+            # scan's block barriers must lie on no such cycle (the reader's
+            # backward-branch spans may enclose them: code laid out after
+            # the exit jumps back)
+            for match, ops in (("probe_window_kernel", ("LDGSTS", "STG")),
+                               ("probe_window_tma_kernel",
+                                ("UTMALDG", "UTMASTG")),
+                               ("probe_window_tma_kernel", ("FADD", "SYNCS"))):
+                for fn in (r for r in recs if match in r["function"]):
+                    walks = [cy for cy in fn["cycles"]
+                             if all(cy["opcodes"].get(o) for o in ops)]
+                    fname = fn["function"].split("(")[0]
+                    assert len(walks) == 1, f"{fname}: {len(walks)} walks"
+                    assert not walks[0]["opcodes"].get("BAR"), \
+                        f"a block barrier in {fname}'s walk: {walks[0]}"
+                    bars = fn["opcodes"].get("BAR", 0)
+                    print(f"[sass] {fname} walk with {' + '.join(ops)}: a "
+                          f"cycle of {walks[0]['insns']} instructions, no "
+                          f"BAR (the function's {bars} BARs lie on no cycle "
+                          f"with it)")
 
 
 def run_probes(card):
@@ -975,7 +1026,8 @@ def run_probes(card):
             for name in ("mma", "stage", "window")}
     counts = _counts()
     arms = {"probe_mma": dict(probe.mma_probe.arm_launches),
-            "probe_stage": dict(probe.stage_probe.arm_launches)}
+            "probe_stage": dict(probe.stage_probe.arm_launches),
+            "probe_window": dict(probe.window_probe.arm_launches)}
     print(f"[main] probes: launches {counts}, by arm {arms}")
     for name in PROBES:
         assert counts[name] > 0, f"{name} never launched in the probes' run"
@@ -987,14 +1039,21 @@ def run_probes(card):
     assert top <= BF16_FLOP_PER_S / 1e12, "a rate above the card's peak"
     assert all(r["ns_per_step"] > 0 for r in recs["stage"])
     assert all(r["ns_per_window"] > 0 for r in recs["window"])
+    # the copy engine's own answer at 16 bytes must be yes (the check's
+    # control); at 8 and 4 bytes it is what the card says
+    boxes = {r["align"]: r["box"] for r in recs["window"] if r["box"]}
+    print(f"[main] probes: an [8, 128] TMA box at x = align elements: "
+          f"{boxes}")
+    assert boxes[4] == "taken", boxes
     return counts, arms, recs
 
 
 def time_probes(card):
-    """One named point per probe: the kernel's ms (probe_mma and
-    probe_stage: the new arm's, the old arm's beside it), its plain
-    version's, the bound, and for probe_mma one torch.matmul of the same
-    sums."""
+    """One named point per probe: the kernel's ms (the new arm's -- wgmma,
+    tma -- with the old arm's beside it), its plain version's, the bound,
+    and the library's call of the same function: for probe_mma one
+    torch.matmul of the same sums, for probe_window the fastest of three
+    accumulating index calls."""
     import torch
     from volq_torch import probe
     from volq_torch.probe import tensor_core, stage, window
@@ -1078,28 +1137,80 @@ def time_probes(card):
         "ns_per_step": st_ms["tma"] * 1e6 / Gs,
         "point": f"K {Ks} tiles of 4 KB a step, G {Gs} steps, tma ring of "
                  f"{stage.DEPTH}"}
-    # probe_window: 16-element alignment
+    # probe_window: 4096 windows, x aligned to 16 elements, both arms
+    # (device time of a graph replay).  Bound: the larger of the bytes --
+    # the windows overlap, so each canvas cell that these offsets touch is
+    # read once and written once, and the offsets are read once -- and the
+    # chain: the longest run of windows each overlapping an earlier one
+    # (``window.chain_length``), each a dependent round trip through L2
+    # timed on the card (``window.rt_clocks``) at the SM clock read while
+    # the kernel's launches run
     align = 16
     off = torch.from_numpy(window.make_offsets(align)).to(dev)
     canvas = torch.zeros((window.H, window.W), device=dev)
-    # bytes: the windows overlap, so each canvas cell that these offsets
-    # touch is read once and written once, and the offsets are read once
+    # (``blocks``: the grid of each arm's launches, as its launcher
+    # reports it)
+    w_ms, w_blocks = {}, {}
+    for arm in window.ARMS:
+        probe.window_probe.blocks = 0
+        w_ms[arm] = probe.median_ms(lambda: probe.window_probe(
+            canvas, off, align, check_offsets=False, arm=arm))
+        w_blocks[arm] = probe.window_probe.blocks
+    assert all(b > 1 for b in w_blocks.values()), \
+        f"probe_window launched {w_blocks} blocks"
     touched = window.cells_touched(off, window.W)
     w_by = 2 * touched * 4 + off.numel() * 4
-    w_b, w_f = _bound(w_by, window.N * window.WH * window.WW)
+    chain = window.chain_length(off)
+    rt = window.rt_clocks()
+    # (the wrapper's host work, some tens of us, paces these launches)
+    w_mhz = _sm_clock_during(lambda: probe.window_probe(
+        canvas, off, align, check_offsets=False), max(w_ms["tma"], 0.05))
+    w_terms = {"bytes": w_by / HBM_BYTES_PER_S * 1e3,
+               "chain": chain * rt / (w_mhz * 1e6) * 1e3}
+    w_term = max(w_terms, key=w_terms.get)
+    # the library's time for the same function: every sum is a small
+    # integer, exact in fp32 in any order, so one accumulating index call
+    # of ones at the windows' cell indices (built once, outside the timed
+    # call) gives the loop's canvas bit for bit; the fastest of three
+    idx = window.cell_index(off, window.W)
+    ones = torch.ones(idx.numel(), device=dev)
+    ref = probe.window_probe_plain(
+        torch.zeros((window.H, window.W), device=dev), off, align)
+    flat = torch.zeros(window.H * window.W, device=dev)
+    calls = {
+        "index_add_": lambda c: c.index_add_(0, idx, ones),
+        "scatter_add_": lambda c: c.scatter_add_(0, idx, ones),
+        "index_put_(accumulate=True)":
+            lambda c: c.index_put_((idx,), ones, accumulate=True)}
+    lib_ms, lib_equal = {}, {}
+    for lname, call in calls.items():
+        got = call(torch.zeros_like(flat)).view(window.H, window.W)
+        lib_equal[lname] = bool(torch.equal(got, ref))
+        assert lib_equal[lname], f"{lname} differs from the plain version"
+        lib_ms[lname] = _graph_ms(lambda: call(flat), reps=50)
+    lib_best = min(lib_ms, key=lib_ms.get)
+    del idx, ones, flat
     out["probe_window"] = {
-        "ms": probe.median_ms(lambda: probe.window_probe(
-            canvas, off, align, check_offsets=False)),
+        "ms": w_ms["tma"], "arm": "tma", "cp_async_ms": w_ms["cp_async"],
         "plain_ms": _cuda_ms(
             lambda: probe.window_probe_plain(canvas, off, align), 1),
-        "bound_ms": w_b, "bound_by": w_f, "library_ms": None,
+        "bound_ms": w_terms[w_term],
+        # the chain is a run of dependent operations
+        "bound_by": "bytes" if w_term == "bytes" else "operations",
+        "bound_term": w_term, "bound_terms_ms": w_terms,
+        "chain_length": chain, "rt_clocks": rt, "sm_mhz": w_mhz,
+        "library_ms": lib_ms[lib_best], "library_call": lib_best,
+        "library_ms_by_call": lib_ms, "library_bit_equal": lib_equal,
         "bound_bytes": w_by, "cells_touched": touched,
+        "blocks": w_blocks,
         "point": f"{window.N} windows 8 x 128 fp32 of a {window.H} x "
                  f"{window.W} canvas, x aligned to {align}"}
     for name, t in out.items():
         old = {k: v for k, v in t.items() if k in (
             "mma_sync_ms", "cp_async_ms", "wrapper_ms", "cp_async_wrapper_ms",
-            "fadd_clocks", "sm_mhz")}
+            "fadd_clocks", "sm_mhz", "bound_terms_ms", "chain_length",
+            "rt_clocks", "library_call", "library_ms_by_call",
+            "library_bit_equal", "blocks")}
         print(f"[timing] {name} ({t['point']}): kernel {t['ms']:.4f} ms "
               f"{old}, plain {t['plain_ms']:.3f} ms, bound "
               f"{t['bound_ms']:.6f} ms ({t.get('bound_term', t['bound_by'])})"
@@ -1304,7 +1415,7 @@ def main() -> int:
     # ---- the probes, then the command line on c1 and c2
     check_probes(errs)
     check_probe_sass()
-    probe_counts, probe_arms, _ = run_probes(card)
+    probe_counts, probe_arms, probe_recs = run_probes(card)
     probe_times = time_probes(card)
     c1_counts = drive_cli(card)
     c1_times = time_c1_warp(card, errs)
@@ -1518,6 +1629,9 @@ def main() -> int:
             k["launches_by_arm"] = probe_arms[name]
             k["max_abs_err_by_arm"] = {arm: errs[name, arm]
                                        for arm in probe_arms[name]}
+        if name == "probe_window":
+            k["tma_box_at"] = {r["align"]: r["box"]
+                               for r in probe_recs["window"] if r["box"]}
         if name == "probe_mma":
             k["max_rel_err"] = errs["probe_mma_rel", "wgmma"]
             k["max_rel_err_by_arm"] = {

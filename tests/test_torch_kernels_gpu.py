@@ -31,10 +31,12 @@ and torch.equal (B); B's fill kernel against tile_lists_plain.  The
 probes: both arms of probe_mma (mma_sync, wgmma) on shapes that exercise
 every wgmma plan within 1e-4 of max |out| of the fp64 plain sum, both arms
 of probe_stage (cp_async, tma at ring depths 2, 4, 8) and probe_window
-bit-equal.
+(cp_async at align 128 / 16 / 8 / 4, tma also at 2 / 1; the reference's
+windows and heavy-overlap cases) bit-equal.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -394,29 +396,62 @@ def test_probe_stage_matches_plain(mix, run):
     assert probe.stage_probe.launches == n0 + 5
 
 
-@pytest.mark.parametrize("align", [128, 16, 8, 4])
-def test_probe_window_matches_plain(align):
-    """Overlapping windows on a small canvas, where most of them overlap
-    their predecessor, and the reference's size."""
+@pytest.mark.parametrize("run", [("cp_async", 128), ("cp_async", 16),
+                                 ("cp_async", 8), ("cp_async", 4),
+                                 ("tma", 128), ("tma", 16), ("tma", 8),
+                                 ("tma", 4), ("tma", 2), ("tma", 1)],
+                         ids=lambda r: f"{r[0]}-{r[1]}")
+def test_probe_window_matches_plain(run):
+    """Bit-equal on each arm at every alignment it takes: overlapping
+    windows on a small canvas, where most of them overlap their
+    predecessor; the reference's size; the heavy-overlap cases on the
+    reference's canvas (every window in one band, every window identical --
+    a chain of 4096 --, x within 256 of the edge, x at 0 or W - 128); more
+    windows than a launch takes (two launches, in order); one band of x in
+    [0, 264), where the tma arm's wide boxes share columns that their
+    windows do not.  Every launch one block a band."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from volq_torch import probe
     from volq_torch.probe import window
-    for n, h, w in ((257, 24, 256), (window.N, window.H, window.W)):
-        off = torch.from_numpy(window.make_offsets(align, n, h, w, seed=n))
+    arm, align = run
+    cases = [((24, 256), window.make_offsets(align, 257, 24, 256, seed=257)),
+             ((window.H, window.W), window.make_offsets(align)),
+             ((24, 256), window.make_offsets(align, window.MAX_LIST + 300,
+                                             24, 256, seed=9))]
+    cases += [((window.H, window.W), o)
+              for o in window.overlap_cases(align, seed=align).values()]
+    xs = np.random.RandomState(align).randint(0, 264 // align, 1000) * align
+    cases.append(((8, 512), np.stack([np.zeros_like(xs), xs], 1)
+                  .astype(np.int32).reshape(-1)))
+    for (h, w), o in cases:
+        off = torch.from_numpy(o)
+        n = off.numel() // 2
+        n0 = probe.window_probe.launches
         out = probe.window_probe(torch.zeros((h, w), device="cuda"),
-                                 off.cuda(), align)
+                                 off.cuda(), align, arm=arm)
         ref = probe.window_probe_plain(torch.zeros((h, w)), off, align)
-        assert torch.equal(out.cpu(), ref)
+        assert torch.equal(out.cpu(), ref), (h, w, n)
         assert float(out.sum()) == n * window.WH * window.WW
+        assert probe.window_probe.launches == n0 + -(-n // window.MAX_LIST)
+        assert probe.window_probe.blocks == (h - window.WH) // window.WH + 1
     with pytest.raises(ValueError):
         probe.window_probe(torch.zeros((24, 256), device="cuda"),
-                           off[:8].cuda() + 2, align)
+                           off[:8].cuda() + 2, align, arm=arm)
     # no windows: nothing launches and nothing is counted
     n0 = probe.window_probe.launches
     blank = torch.zeros((24, 256), device="cuda")
-    assert probe.window_probe(blank, off[:0].cuda(), align) is blank
+    assert probe.window_probe(blank, off[:0].cuda(), align, arm=arm) is blank
     assert probe.window_probe.launches == n0
+
+
+def test_window_rt_clocks():
+    """The chain term's round trip through L2, timed on the card: more
+    than an L1 hit, less than a microsecond at any clock."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from volq_torch.probe import window
+    assert 50 < window.rt_clocks() < 4000
 
 
 # --------------------------------------------------------------------------

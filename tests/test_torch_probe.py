@@ -293,7 +293,7 @@ def test_stage_plain_matches_pallas_body(monkeypatch, capsys, mix):
     np.testing.assert_array_equal(want, got.numpy())
 
 
-@pytest.mark.parametrize("align", [128, 16, 8])
+@pytest.mark.parametrize("align", [128, 16, 8, 4, 1])
 def test_window_plain_matches_pallas_body(align):
     gran = _bench_module("granule_probe")
     H, W, N = 64, 512, 32
@@ -318,8 +318,10 @@ def test_window_plain_matches_pallas_body(align):
     np.testing.assert_array_equal(np.asarray(ref), got.numpy())
     assert float(got.max()) >= 2.0, "no two windows overlap"
     assert float(got.sum()) == N * 8 * 128
-    assert torch.equal(probe.window_probe(torch.zeros((H, W)), toff, align),
-                       got)
+    for arm in window.ARMS:
+        if align in window.ALIGNS[arm]:
+            assert torch.equal(probe.window_probe(
+                torch.zeros((H, W)), toff, align, arm=arm), got)
 
 
 def test_window_offsets_are_the_reference_s():
@@ -340,12 +342,18 @@ def test_window_offsets_are_the_reference_s():
 
 def test_window_cells_touched_counts_overlap_once():
     """The bytes a window run must move: every covered cell once, however
-    many windows cover it."""
+    many windows cover it; and the library call's form of the function,
+    one index_add_ of ones at every window's cell indices, bit-equal to
+    the ordered loop."""
     off = torch.from_numpy(window.make_offsets(8, 32, 64, 512, seed=3))
     counts = probe.window_probe_plain(torch.zeros((64, 512)), off, 8)
     touched = window.cells_touched(off, 512)
     assert touched == int((counts > 0).sum()) < 32 * 8 * 128
     assert window.cells_touched(off[:2], 512) == 8 * 128
+    idx = window.cell_index(off, 512)
+    assert idx.dtype == torch.int64 and idx.numel() == 32 * 8 * 128
+    lib = torch.zeros(64 * 512).index_add_(0, idx, torch.ones(idx.numel()))
+    assert torch.equal(lib.view(64, 512), counts)
     # no windows: nothing to do, and the launch count stays as it was
     before = probe.window_probe.launches
     empty = torch.zeros(0, dtype=torch.int32)
@@ -373,13 +381,97 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         probe.stage_probe(xs, sm, [cs[0][:2]], 4)
     canvas = torch.zeros((64, 512))
     off = torch.from_numpy(window.make_offsets(8, 16, 64, 512))
-    for bad in (dict(align=16), dict(align=2)):
+    for bad in (dict(align=16), dict(align=2, arm="cp_async"),
+                dict(align=8, arm="wgmma")):
         with pytest.raises(ValueError):
             probe.window_probe(canvas, off, **bad)
     with pytest.raises(ValueError):
         probe.window_probe(canvas, off + 60, 4)
     with pytest.raises(TypeError):
         probe.window_probe(canvas, off.long(), 8)
+
+
+def test_window_chain_length():
+    """The chain that bounds the window probe: N identical windows are a
+    chain of N, disjoint ones of 1; windows overlap when |dx| < 128 and
+    |dy| < 8; the reference's offsets give chains of 8 / 12 / 12 / 11 at
+    align 128 / 16 / 8 / 4."""
+    def off(*yx):
+        return np.asarray(yx, np.int32).reshape(-1)
+
+    assert window.chain_length(off(*[(8, 40)] * 7)) == 7
+    assert window.chain_length(off((0, 0), (0, 128), (8, 0), (8, 256))) == 1
+    assert window.chain_length(off((16, 0), (16, 127))) == 2
+    assert window.chain_length(off((16, 127), (16, 0))) == 2
+    assert window.chain_length(off((16, 0), (16, 128))) == 1
+    assert window.chain_length(off((16, 0), (20, 0), (24, 0))) == 3
+    assert window.chain_length(off((16, 0), (24, 0))) == 1
+    # a chain follows the order given: the third overlaps the first two
+    assert window.chain_length(off((0, 0), (0, 200), (0, 100))) == 2
+    assert window.chain_length(np.zeros(0, np.int32)) == 0
+    assert window.chain_length(torch.from_numpy(off((0, 0), (0, 1)))) == 2
+    for align, want in ((128, 8), (16, 12), (8, 12), (4, 11)):
+        assert window.chain_length(window.make_offsets(align)) == want
+
+
+@pytest.mark.parametrize("align", [128, 16, 4, 2, 1])
+def test_window_overlap_cases(align):
+    """The card's heavy-overlap cases: inside the canvas, y 8-aligned, x
+    ``align``-aligned (taken by each arm that takes the alignment), each
+    as deep a chain as it claims; the wrapper runs them as the loop does."""
+    n, h, w = 96, 64, 512
+    cases = window.overlap_cases(align, n, h, w, seed=5)
+    assert set(cases) == {"one_band", "identical", "dense", "edges"}
+    for name, o in cases.items():
+        ys, xs = o[0::2], o[1::2]
+        assert o.dtype == np.int32 and o.shape == (2 * n,), name
+        assert (ys % 8 == 0).all() and (ys >= 0).all() and \
+            (ys <= h - 8).all(), name
+        assert (xs % align == 0).all() and (xs >= 0).all() and \
+            (xs <= w - 128).all(), name
+        toff = torch.from_numpy(o)
+        ref = probe.window_probe_plain(torch.zeros((h, w)), toff, align)
+        for arm in window.ARMS:
+            if align in window.ALIGNS[arm]:
+                assert torch.equal(probe.window_probe(
+                    torch.zeros((h, w)), toff, align, arm=arm), ref), name
+    assert len(set(cases["one_band"][0::2])) == 1
+    assert window.chain_length(cases["identical"]) == n
+    # dense: most windows overlap one of the 7 before them in their band
+    # (in flight at once on the card)
+    ys, xs = cases["dense"][0::2], cases["dense"][1::2]
+    near = 0
+    for y in set(ys):
+        b = xs[ys == y].astype(int)
+        near += sum(any(abs(b[i] - b[j]) < 128 for j in range(max(0, i - 7), i))
+                    for i in range(len(b)))
+    assert near > n // 2
+    assert set(cases["edges"][1::2]) == {0, w - 128}
+
+
+def test_window_probe_arms_and_bands():
+    """The wrapper takes y only in multiples of 8 (one block walks one
+    8-row band), on both arms; the cp_async arm takes x only in multiples
+    of 4 elements (16-byte copies), the tma arm any x."""
+    h, w = 32, 256
+    canvas = torch.zeros((h, w))
+    for arm in window.ARMS:
+        with pytest.raises(ValueError, match="multiple of 8"):
+            probe.window_probe(canvas, torch.tensor([4, 0], dtype=torch.int32),
+                               4, arm=arm)
+    off = torch.tensor([0, 3, 8, 2, 0, 1, 24, 128], dtype=torch.int32)
+    for align in (2, 1):
+        with pytest.raises(ValueError, match="cp_async"):
+            probe.window_probe(canvas, off, align, arm="cp_async")
+    with pytest.raises(ValueError, match="1-aligned|2-aligned"):
+        probe.window_probe(canvas, off, 2, arm="tma")
+    got = probe.window_probe(torch.zeros((h, w)), off, 1, arm="tma")
+    assert torch.equal(got, probe.window_probe_plain(torch.zeros((h, w)),
+                                                     off, 1))
+    assert float(got[0, 3]) == 2.0 and float(got[8, 2]) == 1.0
+    assert float(got[31, 255]) == 1.0 and float(got[0, 0]) == 0.0
+    with pytest.raises(ValueError, match="width"):
+        probe.window_probe(torch.zeros((h, 258)), off, 1)
 
 
 def test_probe_entry_point_needs_the_card(monkeypatch, capsys):

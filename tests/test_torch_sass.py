@@ -1,6 +1,7 @@
 """The SASS reader of ``volq_torch.sass`` on a made-up disassembly in
 ``cuobjdump -sass``'s format (both of its branch-target spellings), on the
-CPU: functions, labels, loops and their nesting, instruction classes."""
+CPU: functions, labels, loops and their nesting, the control-flow graph
+and its cycles, instruction classes."""
 import pytest
 
 from volq_torch import sass
@@ -39,8 +40,9 @@ def test_parse_reads_every_function_and_instruction():
     assert list(funcs) == ["_Z3fooILi1EEvPf", "_Z3barv"]
     foo = funcs["_Z3fooILi1EEvPf"]
     assert len(foo) == 11 and len(funcs["_Z3barv"]) == 2
-    assert foo[2] == (0x20, "LDS.U.128", "R4, [R0]", ".L_x_0")
+    assert foo[2] == (0x20, "LDS.U.128", "R4, [R0]", ".L_x_0", None)
     assert foo[4][1] == "FMUL" and foo[4][3] is None
+    assert foo[6][4] == "@P1" and foo[8][4] == "@!P0"
 
 
 def test_loops_nest_and_skip_the_padding_branch():
@@ -56,6 +58,51 @@ def test_loops_nest_and_skip_the_padding_branch():
     assert s["classes"] == {"barrier": 1, "branch": 4, "convert": 1,
                             "fp32": 1, "lds": 1, "ldg": 1, "move": 2}
     assert s["opcodes"]["BRA"] == 3 and s["opcodes"]["IMAD"] == 1
+
+
+# a walk after a block barrier, a shuffle's slow path laid out after the
+# exit that jumps back to before the barrier: a backward branch whose span
+# holds the barrier and the walk, but no cycle through both
+WALK = """
+		Function : _Z4walkv
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   BRA.DIV UR4, `(.L_x_9) ;
+.L_x_8:
+        /*0020*/                   SHFL.IDX PT, R1, R0, RZ, 0x1f ;
+        /*0030*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+.L_x_5:
+        /*0040*/                   LDGSTS.E.BYPASS.128 [R2], desc[UR4][R4.64] ;
+        /*0050*/                   STG.E.128 desc[UR4][R4.64], R8 ;
+        /*0060*/               @P0 BRA `(.L_x_5) ;
+        /*0070*/               @P1 EXIT ;
+        /*0080*/                   EXIT ;
+.L_x_9:
+        /*0090*/                   WARPSYNC.ALL ;
+        /*00a0*/                   SHFL.IDX PT, R1, R0, RZ, 0x1f ;
+        /*00b0*/                   BRA `(.L_x_8) ;
+.L_x_10:
+        /*00c0*/                   BRA `(.L_x_10);
+"""
+
+
+def test_cycles_are_the_code_that_runs_again():
+    walk = sass.parse(WALK)["_Z4walkv"]
+    succ = sass.successors(walk)
+    assert succ[1] == [9, 2]             # a branch with a condition operand
+    assert succ[6] == [4, 7] and succ[7] == [8] and succ[8] == []
+    assert succ[11] == [2] and succ[12] == [12]     # bare branches
+    assert sass.cycles(walk) == [[4, 5, 6]]         # not the padding
+    s = sass.summary(walk)
+    span = [lp for lp in s["loops"] if lp["opcodes"].get("BAR")]
+    assert len(span) == 1 and span[0]["opcodes"].get("LDGSTS")
+    (cy,) = s["cycles"]
+    assert (cy["first"], cy["last"], cy["insns"]) == (0x40, 0x60, 3)
+    assert cy["opcodes"] == {"BRA": 1, "LDGSTS": 1, "STG": 1}
+    # nested loops are one cycle, the barrier inside it
+    foo = sass.parse(SAMPLE)["_Z3fooILi1EEvPf"]
+    assert sass.cycles(foo) == [[2, 3, 4, 5, 6, 7, 8]]
+    assert sass.summary(foo)["cycles"][0]["opcodes"]["BAR"] == 1
+    assert sass.cycles(sass.parse(SAMPLE)["_Z3barv"]) == []
 
 
 @pytest.mark.parametrize("op,cls", [

@@ -2,9 +2,11 @@
 // PTX: mbarriers (arrival counts plus expected transaction bytes, waited on
 // by phase parity), the Tensor Memory Accelerator (TMA: tensor-map tile
 // loads and 1-D bulk copies from device memory into shared memory, each
-// completing on an mbarrier), and the warpgroup matrix multiply's fences,
-// groups and shared-memory matrix descriptors (the instructions themselves
-// are in wgmma.cuh).
+// completing on an mbarrier, and tensor-map tile stores back, waited for by
+// bulk async-group), the proxy fences between them and ordinary loads and
+// stores, and the warpgroup matrix multiply's fences, groups and
+// shared-memory matrix descriptors (the instructions themselves are in
+// wgmma.cuh).
 
 #pragma once
 
@@ -78,7 +80,9 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
 }
 
 // one box of a 2-D / 3-D tensor map at element coordinates (innermost
-// first) into shared memory; elements outside the tensor arrive as zeros
+// first) into shared memory; elements outside the tensor arrive as zeros.
+// The innermost coordinate must be a multiple of 16 bytes: an H100 raises
+// an illegal instruction (error 715) at a 4- or 8-byte offset
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
                                             int c0, int c1, uint32_t bar) {
   asm volatile(
@@ -96,6 +100,75 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// one box of a 2-D tensor map from shared memory into device memory at
+// element coordinates (innermost first, a multiple of 16 bytes, as for the
+// loads), in the thread's bulk async-group
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}],"
+      " [%1];\n" ::"l"((uint64_t)map),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// close the thread's bulk async-group (the stores issued since the last)
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of the thread's latest bulk groups are pending:
+// the older ones complete, their writes performed
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the same, but only until their reads of shared memory are done (the
+// source may then be overwritten; the writes may still be in flight)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// generic-proxy writes to shared memory before it are visible to the async
+// proxy (a TMA store reading that memory) after it
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the same between the proxies' accesses to device memory
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda);
+// nullptr if the driver does not give it
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = (EncodeTiled)f;
+  }
+  return fn;
 }
 
 // ---- warpgroup matrix multiply: ordering

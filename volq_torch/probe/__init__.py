@@ -13,7 +13,8 @@ redesign can start from the card's own numbers.
   TMA bulk copies into an mbarrier ring;
 * ``window.window_probe`` (``csrc/probe_window.cu``, replaces
   ``bench/granule_probe.py:run``): an ordered read-modify-write of canvas
-  windows at offsets of different alignment.
+  windows at offsets of different alignment, a block per 8-row band, by
+  16-byte ``cp.async`` or by TMA loads and stores at element offsets.
 
 Each wrapper launches its kernel for tensors on the card (raising if it
 cannot), runs its plain PyTorch version only for tensors on the CPU, and

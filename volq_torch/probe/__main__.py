@@ -6,7 +6,9 @@ With no name all three run.  Prints the card's name and power limit, then
 per probe one line per point: ns per product and TFLOP/s per shape on one
 SM and on all of them, on the mma_sync and the wgmma arm (mma); ns per
 step per K on the cp_async arm and on the tma arm at ring depths 2, 4 and
-8 (stage); ns per window per alignment (window).  Needs a CUDA device.
+8 (stage); ns per window on the cp_async and the tma arm at every
+alignment each takes, with the chain length of the offsets (window).
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -44,8 +46,11 @@ def run_window(card: str):
     from volq_torch.probe import window
     recs = window.sweep()
     for r in recs:
-        print(f"[probe] window align {r['align']:4d}: {r['ms']:8.3f} ms "
-              f"{r['ns_per_window']:8.1f} ns/window  [{card}]")
+        print(f"[probe] window {r['arm']:8s} align {r['align']:4d} chain "
+              f"{r['chain']:2d}: {r['ms']:8.4f} ms "
+              f"{r['ns_per_window']:8.2f} ns/window"
+              + (f", [8, 128] box at x = {r['align']}: {r['box']}"
+                 if r["box"] else "") + f"  [{card}]")
     return recs
 
 

@@ -13,7 +13,11 @@ special functions, integer, compares and selects, barriers, branches, the
 asynchronous copies -- cp.async, TMA, mbarriers -- and the tensor-core
 products, mma.sync's HMMA and wgmma's HGMMA), and the whole function's
 count by class.  A loop body's count is static: code that a forward branch
-skips is counted too.  Needs the CUDA toolkit (``cuobjdump``), not a card.
+skips is counted too.  A backward branch need not close a loop (code laid
+out after the function's exit may jump back to where it was called from),
+so each function also gets its cycles: the strongly connected parts of its
+control-flow graph, the instructions that can run more than once in one
+run of it.  Needs the CUDA toolkit (``cuobjdump``), not a card.
 """
 from __future__ import annotations
 
@@ -68,7 +72,9 @@ def classify(op: str) -> str:
 
 def parse(text: str) -> dict:
     """``cuobjdump -sass`` text -> {mangled name: [(addr, opcode, operands,
-    label or None)]}, the label being one that starts at that address."""
+    label or None, guard or None)]}, the label being one that starts at
+    that address and the guard the predicate (``@P0``, ``@!UP1``) the
+    instruction runs under."""
     funcs, cur, pending = {}, None, None
     for line in text.splitlines():
         m = _FUNC.match(line)
@@ -84,8 +90,9 @@ def parse(text: str) -> dict:
             continue
         m = _INSN.match(line)
         if m:
+            guard = m.group(2).strip() if m.group(2) else None
             cur.append((int(m.group(1), 16), m.group(3), m.group(4).strip(),
-                        pending))
+                        pending, guard))
             pending = None
     return funcs
 
@@ -94,20 +101,93 @@ def loops(insns) -> list:
     """Loops of one function: each backward branch (``BRA`` to an address
     or label before it; not the branch to itself that pads a function's
     end) gives [start index, end index]."""
-    at = {a: i for i, (a, _, _, _) in enumerate(insns)}
-    label = {lab: i for i, (_, _, _, lab) in enumerate(insns) if lab}
     out = []
-    for i, (_, op, args, _) in enumerate(insns):
+    for i, (_, op, args, _, _) in enumerate(insns):
         if op.split(".")[0] != "BRA":
             continue
-        m = _TARGET.search(args)
-        if not m:
-            continue
-        j = (label.get(m.group(2)) if m.group(2)
-             else at.get(int(m.group(1), 16)))
+        j = _target(insns, args)
         if j is not None and j < i:
             out.append((j, i))
     return sorted(set(out))
+
+
+def _target(insns, args):
+    """Index of the instruction that a branch's operands ``args`` name, or
+    None."""
+    m = _TARGET.search(args)
+    if not m:
+        return None
+    if m.group(2):
+        return next((i for i, ins in enumerate(insns)
+                     if ins[3] == m.group(2)), None)
+    a = int(m.group(1), 16)
+    return next((i for i, ins in enumerate(insns) if ins[0] == a), None)
+
+
+def successors(insns) -> list:
+    """The control-flow graph of one function, an instruction a node:
+    [indices that may run next] for each instruction.  A branch goes to
+    its target, and on to the next instruction too unless it is a bare
+    ``BRA target`` (no guard, no condition operand); ``CALL`` to its
+    target and on; an unguarded ``EXIT`` or ``RET`` ends; an indirect
+    branch (``BRX``, ``JMX``) may go to any labelled instruction."""
+    labelled = [i for i, ins in enumerate(insns) if ins[3]]
+    out = []
+    for i, (_, op, args, _, guard) in enumerate(insns):
+        head = op.split(".")[0]
+        nxt = [i + 1] if i + 1 < len(insns) else []
+        if head in ("BRA", "CALL", "JMP"):
+            j = _target(insns, args)
+            bare = (head != "CALL" and guard is None and "," not in args
+                    and j is not None)
+            out.append(([j] if j is not None else []) + ([] if bare else nxt))
+        elif head in ("BRX", "JMX"):
+            out.append(labelled + nxt)
+        elif head in ("EXIT", "RET"):
+            out.append(nxt if guard else [])
+        else:
+            out.append(nxt)
+    return out
+
+
+def cycles(insns) -> list:
+    """The instructions that can run more than once in one run of the
+    function: the strongly connected components of ``successors``' graph,
+    reachable from its first instruction, that hold a cycle.  Each a sorted
+    list of indices; the components in the order of their first one."""
+    succ = successors(insns)
+    index, low, on, stack, comps = {}, {}, set(), [], []
+    for root in (0,) if insns else ():
+        work = [(root, 0)]
+        index[root] = low[root] = 0
+        stack.append(root)
+        on.add(root)
+        while work:                      # Tarjan's, without recursion
+            v, k = work.pop()
+            if k < len(succ[v]):
+                work.append((v, k + 1))
+                w = succ[v][k]
+                if w not in index:
+                    index[w] = low[w] = len(index)
+                    stack.append(w)
+                    on.add(w)
+                    work.append((w, 0))
+                elif w in on:
+                    low[v] = min(low[v], index[w])
+                continue
+            if work:
+                low[work[-1][0]] = min(low[work[-1][0]], low[v])
+            if low[v] == index[v]:
+                comp = []
+                while True:
+                    w = stack.pop()
+                    on.discard(w)
+                    comp.append(w)
+                    if w == v:
+                        break
+                if len(comp) > 1 or v in succ[v]:
+                    comps.append(sorted(comp))
+    return sorted(comps)
 
 
 def summary(insns) -> dict:
@@ -120,14 +200,18 @@ def summary(insns) -> dict:
         depth = sum(1 for a, b in spans if a <= j and i <= b) - 1
         recs.append({"start": insns[j][0], "end": insns[i][0],
                      "insns": len(body), "depth": depth, **_counts(body)})
-    return {"insns": len(insns), **_counts(insns), "loops": recs}
+    cyc = [{"first": insns[c[0]][0], "last": insns[c[-1]][0],
+            "insns": len(c), **_counts([insns[k] for k in c])}
+           for c in cycles(insns)]
+    return {"insns": len(insns), **_counts(insns), "loops": recs,
+            "cycles": cyc}
 
 
 def _counts(insns) -> dict:
     """Counts of ``insns`` by class and by opcode (its first dotted part)."""
     classes: dict[str, int] = {}
     ops: dict[str, int] = {}
-    for _, op, _, _ in insns:
+    for _, op, _, _, _ in insns:
         c, o = classify(op), op.split(".")[0]
         classes[c] = classes.get(c, 0) + 1
         ops[o] = ops.get(o, 0) + 1
@@ -210,6 +294,10 @@ def main(argv=None) -> int:
             print(f"[sass]   loop {lp['start']:#06x}-{lp['end']:#06x} depth "
                   f"{lp['depth']}: {lp['insns']} instructions "
                   + " ".join(f"{k} {v}" for k, v in lp["classes"].items()))
+        for cy in r["cycles"]:
+            print(f"[sass]   cycle {cy['first']:#06x}..{cy['last']:#06x}: "
+                  f"{cy['insns']} instructions "
+                  + " ".join(f"{k} {v}" for k, v in cy["classes"].items()))
     if a.json:
         Path(a.json).parent.mkdir(parents=True, exist_ok=True)
         Path(a.json).write_text(json.dumps(recs, indent=1))

@@ -47,8 +47,24 @@ final result line):
      kernel), the two paths' images of one state within 6/256 in bf16
      and 1e-4 in fp32, A and B timed against their bounds on c2's inputs,
      both loops timed (ms/frame side by side);
+  2d. the slab engine (plain torch, no kernel): c1 with engine=slab in
+     fp32 against --device cpu within 1e-5 and against the slab oracle
+     (volq_torch/render/slab_oracle.py, the reference's, copied) within
+     the reference's 1e-3 on the full 256 x 256 frame; c2 at full size
+     with engine=slab, slab_fp32=False against --device cpu within 1e-3
+     (and in fp32 within 1e-5) and against the quantized oracle on the
+     64 x 64 window at the
+     frame's centre within BASELINE.md's c2_slab_bf16_full budget
+     0.0156; c2 with slab_grouped (the port marches it pairwise: see
+     render/slab.py) against c2 within 1e-5; the two loops timed; then
+     the unsharded frames the mesh phase holds its sharded ones to (c1
+     exact, c2 slab bf16);
+     the command line's --mesh 1 runs in phase 2b (c1: its second frame
+     against the unsharded run's within 1e-5);
   3. set up preset c3 at full size (1024 particles, 1024 x 128^3 bank,
-     1920x1080) and bake its slab banks;
+     1920x1080) and bake its slab banks; 2 frames of c3 with
+     warp_canvas_fp32=true (the sharded frame's reference) and its loop
+     timed;
   4. hold kernels A (warp_march) and B (warp_composite) against their
      plain PyTorch versions on the card, at the main path's shapes (all
      1024 particles of a c3 frame), in bf16 (c3's mode) and fp32:
@@ -112,11 +128,26 @@ final result line):
      every frame re-bakes the bank), check the image, time the kernels and
      the loop: the one timed walk of B's plain version holds B on every
      particle of a c5 frame;
+ 11b. the sharded frame (dist/) at mesh size 1 on the card, one rank
+     process over NCCL: make_mesh of one rank more than the card count
+     raises naming the count; c1 exact, c2 slab bf16, c3 and c5 (each
+     with warp_canvas_fp32=true, c5 after its own reference frames in
+     phase 11) run 2 frames each in one rank process (loop.run_sharded),
+     each image within 1e-5 and each particle state within 1e-6 of the
+     unsharded frames, alive and pairs_kept equal, A and B launched once
+     a frame through the sharded route on c3 and c5 (the rank's own
+     counters, zeroed after its set-up), none on c1 and c2; in that rank
+     process each config's unsharded and mesh-1 loops timed in turns
+     (MESH_TIMING: 16 frames a window, 4 a call, one warm-up call, three
+     turns), the medians side by side; time_frames(mesh=1) on c1 (the
+     entry point, a rank process of its own);
  12. print the kernels JSON line, nine entries (per warp kernel:
      launches, error, ms, plain ms and bound on the c4 path, with the c1
      warp, c2, c3, ortho, c4 per-step and c5 paths' numbers under
      "c1_warp", "c2", "c3", "c3_ortho", "c4_ortho", "c4_perstep" and
-     "c5"; for every warp kernel also "device_ms", its time replayed
+     "c5"; A and B also under "c3_mesh1" and "c5_mesh1", their
+     launches through the sharded frame at mesh 1 and its ms/frame; for
+     every warp kernel also "device_ms", its time replayed
      from a CUDA graph (without the Python wrappers' host time); for A, C
      and D the SM clock while their launches run ("sm_mhz"); A's and
      C's arm, ring depth and block size (C also its y-pass band and
@@ -181,6 +212,26 @@ FP32_BUDGET = 1e-4
 # (tests/test_warp.py:233)
 XLA_BUDGET = 1e-5
 NAMES = ("warp_march", "warp_composite", "warp_images", "composite_chunk")
+# the slab engine against its oracle: the reference's fp32 budget
+# (tests/test_slab.py:18) and its on-device bf16 budget for c2 through the
+# slab engine (BASELINE.md's device-diff table, c2_slab_bf16_full)
+SLAB_TOL = 1e-3
+SLAB_BF16_TOL = 0.0156
+# card against --device cpu, grouped against pairwise, and the sharded
+# frame against the unsharded one: the reference's 1e-5.  In bf16 the
+# card and the CPU round a hat weight or a slab cell differently wherever
+# their fp32 inputs differ by an ulp (0.000229 on c2, NVIDIA H100 80GB
+# HBM3 against the host CPU): that pair is held to the reference's
+# per-pixel budget SLAB_TOL, and to SAME_TOL in fp32 on the same frame
+SAME_TOL = 1e-5
+# c2's 64 x 64 centre window, (x0, y0, w, h), for the bf16 oracle
+C2_WINDOW = (224, 224, 64, 64)
+# frames of each config the mesh phase holds against the unsharded loop
+N_FRAMES_MESH = 2
+# the mesh phase's timing of each config's unsharded and mesh-1 loops in
+# the rank process: (frames a window, frames a call, warm-up calls,
+# turns), one window of each loop a turn
+MESH_TIMING = (16, 4, 1, 3)
 # Each kernel's ms per launch on each path in this script's last run
 # before C's redesign onto A's march and D's onto per-tile lists (NVIDIA
 # H100 80GB HBM3, 700.00 W; PERF.md section 5), printed on the [timing]
@@ -857,15 +908,21 @@ def time_unfused(tag, state, camera, light, cfg, sb, card, sweep=False):
             for name in ms}
 
 
-def time_loop(tag, prepared, cfg, card, fb=N_FRAMES, n_frames=16, warmup=1):
+def time_loop(tag, prepared, cfg, card, fb=N_FRAMES, n_frames=16, warmup=1,
+              mesh=0):
+    """ms/frame of engine.loop.time_frames (printed and returned): on the
+    ``prepared`` state, or (``mesh`` > 0) the sharded loop on that many
+    ranks, each setting ``cfg`` up itself."""
     from volq_torch.engine import loop
     band = []
     spf, _ = loop.time_frames(cfg, n_frames, warmup=warmup, fb=fb, windows=3,
-                              window_times=band, prepared=prepared)
+                              window_times=band, prepared=prepared,
+                              mesh=mesh)
     mrays = cfg.render.width * cfg.render.height / spf / 1e6
     print(f"[loop] {tag} time_frames: {spf * 1e3:.3f} ms/frame, "
           f"{mrays:.2f} Mrays/s (windows "
           f"{[round(w * 1e3, 3) for w in band]} ms/frame)  [{card}]")
+    return spf * 1e3
 
 
 def check_probes(errs):
@@ -1254,6 +1311,19 @@ def drive_cli(card):
         assert np.array_equal(full, rest), "resume is not frame-exact"
         assert d <= 1e-5, f"exact engine on the card vs the CPU: {d}"
 
+        # the sharded frame through the command line: one rank on the card
+        # over NCCL, its second frame against the unsharded run's
+        t0 = time.perf_counter()
+        assert cli(["--preset", "c1", "--frames", "2", "--out", j("mesh"),
+                    "--npy", "--mesh", "1"]) == 0
+        dt = time.perf_counter() - t0
+        sharded = np.load(j("mesh", "frame_0001.npy"))
+        d = float(np.abs(sharded - np.load(j("full", "frame_0001.npy"))).max())
+        print(f"[mesh] cli c1 --mesh 1: 2 frames in {dt:.2f} s (rank "
+              f"process included); second frame vs the unsharded run's max "
+              f"diff {d:.3e} (budget {SAME_TOL:.0e})")
+        assert d <= SAME_TOL, f"cli --mesh 1 vs unsharded: {d}"
+
         # c1 through the warp engine: (i) as shipped plus engine=warp, the
         # XLA path (plain torch, no kernel); (ii) warp_pallas=true, kernels
         # A and B in their orthographic mode.  Each on the card and on the
@@ -1368,6 +1438,159 @@ def run_c2(card, errs):
     return times, counts
 
 
+def _host(nt):
+    """A NamedTuple of tensors -> the same of numpy arrays on the host,
+    floating point as fp32 (the oracle widens to float64 itself)."""
+    return type(nt)(*(v.detach().cpu().float().numpy()
+                      if v.is_floating_point() else v.detach().cpu().numpy()
+                      for v in nt))
+
+
+def mesh_ref(state, camera, light, cfg, lv, sb):
+    """The unsharded frames the mesh phase holds its sharded frames to:
+    N_FRAMES_MESH frames of ``cfg`` from ``state`` (the config's initial
+    state)."""
+    from volq_torch.engine import loop
+    st, img, stats = loop.frames(state, camera, light, cfg, lv, sb,
+                                 n=N_FRAMES_MESH)
+    return dict(cfg=cfg, image=img.cpu().numpy(), particles=_host(
+        st.particles), stats={k: int(v[-1]) for k, v in stats.items()})
+
+
+def run_slab(card):
+    """The slab engine (plain torch) on the card: c1 with engine=slab in
+    fp32 against --device cpu and the oracle on the full frame; c2 with
+    engine=slab, slab_fp32=False at full size against --device cpu and
+    the quantized oracle on C2_WINDOW; c2 with slab_grouped (which the
+    port marches pairwise) against c2; the two loops timed.  Returns the mesh phase's
+    references of c2 through the slab engine."""
+    import numpy as np
+    import torch
+    from volq_torch.engine import loop
+    from volq_torch.render.slab_oracle import render_slab_oracle
+    from volq_torch.scene.config import c1, c2
+    c1s = _with(c1(), engine="slab")
+    c2s = _with(c2(), engine="slab", slab_fp32=False)
+    ref = None
+    for tag, cfg, window, tol in (("c1 slab fp32", c1s, None, SLAB_TOL),
+                                  ("c2 slab bf16", c2s, C2_WINDOW,
+                                   SLAB_BF16_TOL)):
+        state, camera, light = loop.setup(cfg)
+        t0 = time.perf_counter()
+        img, stats = loop.render_only(state, camera, light, cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        st_c, cam_c, li_c = loop.setup(cfg, "cpu")
+        d_cpu = {}
+        modes = [cfg] if cfg.render.slab_fp32 else \
+            [cfg, _with(cfg, slab_fp32=True)]
+        for c in modes:
+            im = img if c is cfg else loop.render_only(state, camera, light,
+                                                       c)[0]
+            d_cpu[c.render.slab_fp32] = float((im.cpu() - loop.render_only(
+                st_c, cam_c, li_c, c)[0]).abs().max())
+        x0, y0, w, h = window or (0, 0, cfg.render.width, cfg.render.height)
+        t1 = time.perf_counter()
+        oracle = render_slab_oracle(
+            _host(state.particles), state.volumes.float().cpu().numpy(),
+            _host(camera), _host(light), cfg, window=window)
+        d_or = float(np.abs(img[y0:y0 + h, x0:x0 + w].cpu().numpy()
+                            - oracle).max())
+        print(f"[slab] {tag}: 1 frame in {dt:.3f} s, stats "
+              f"{ {k: int(v) for k, v in stats.items()} }; card vs CPU max "
+              f"diff {d_cpu[True]:.3e} in fp32 (budget {SAME_TOL:.0e})"
+              + (f", {d_cpu[False]:.3e} in bf16 (budget {SLAB_TOL:.0e})"
+                 if False in d_cpu else "") + f"; vs the oracle on "
+              f"{w} x {h} at ({x0}, {y0}) max diff {d_or:.3e} (budget "
+              f"{tol}, oracle {time.perf_counter() - t1:.1f} s); alpha max "
+              f"{float(img[..., 3].max()):.4f}")
+        assert tuple(img.shape) == (cfg.render.height, cfg.render.width, 4)
+        assert bool(torch.isfinite(img).all())
+        assert float(img[..., 3].max()) > 0.05
+        assert int(stats["cap_dropped"]) == 0
+        assert d_cpu[True] <= SAME_TOL, f"{tag}: card vs CPU {d_cpu}"
+        assert d_cpu.get(False, 0.0) <= SLAB_TOL, f"{tag}: card vs CPU {d_cpu}"
+        assert d_or <= tol, f"{tag}: vs the oracle {d_or}"
+        time_loop(tag, (state, camera, light, None, None), cfg, card, fb=4,
+                  n_frames=4, warmup=0)
+        if cfg is c2s:
+            grouped = _with(cfg, slab_grouped=True)
+            img_g, _ = loop.render_only(state, camera, light, grouped)
+            d = float((img_g - img).abs().max())
+            print(f"[slab] c2 slab bf16 slab_grouped vs pairwise, one "
+                  f"state: max diff {d:.3e} (budget {SAME_TOL:.0e}; the "
+                  f"flag takes the pairwise march)")
+            assert d <= SAME_TOL, f"c2 grouped vs pairwise: {d}"
+            ref = mesh_ref(state, camera, light, cfg, None, None)
+    return ref
+
+
+def run_mesh(card, refs):
+    """The sharded frame (dist/) at mesh size 1 on the card, over NCCL:
+    ``refs`` (tag -> mesh_ref's record) run N_FRAMES_MESH frames each in
+    one set of rank processes, each image within SAME_TOL and each
+    particle state within 1e-6 of its unsharded frames, alive and
+    pairs_kept equal, kernels A and B launched once a frame on the warp
+    configs; in the rank process, each config's unsharded and mesh-1
+    loops timed in turns (MESH_TIMING); time_frames(mesh=1) on c1; a
+    mesh of 2 on this host raises naming its device count.  Returns
+    rank 0's records by tag, ``ms`` the mesh-1 median ms/frame."""
+    import numpy as np
+    import torch
+    from volq_torch.dist import make_mesh
+    from volq_torch.engine import loop
+    n_cards = torch.cuda.device_count()
+    try:
+        make_mesh(n_cards + 1)
+    except ValueError as e:
+        print(f"[mesh] make_mesh({n_cards + 1}) on {n_cards} card(s): {e}")
+        assert f"have {n_cards}" in str(e)
+    else:
+        raise AssertionError("a mesh larger than the card count was made")
+    mesh = make_mesh(1)
+    t0 = time.perf_counter()
+    recs = loop.run_sharded(mesh, [(ref["cfg"], N_FRAMES_MESH, 1)
+                                   for ref in refs.values()],
+                            timing=MESH_TIMING)
+    print(f"[mesh] {mesh}: {len(refs)} configs x {N_FRAMES_MESH} frames in "
+          f"one rank process, loops timed in turns {MESH_TIMING} (frames "
+          f"a window, frames a call, warm-up calls, turns), "
+          f"{time.perf_counter() - t0:.1f} s with set-up")
+    out = {}
+    for (tag, ref), rec in zip(refs.items(), recs):
+        d = float(np.abs(rec["image"] - ref["image"]).max())
+        ds = max(float(np.abs(np.asarray(a, np.float64)
+                              - np.asarray(b, np.float64)).max())
+                 for a, b in zip(ref["particles"], rec["state"].particles))
+        warp = ref["cfg"].render.engine == "warp"
+        want = N_FRAMES_MESH if warp else 0
+        print(f"[mesh] {tag} at mesh 1: image vs unsharded max diff {d:.3e} "
+              f"(budget {SAME_TOL:.0e}), particles {ds:.3e}, stats "
+              f"{rec['stats']}, launches {rec['launches']}, wire bytes "
+              f"{rec['wire']}")
+        assert rec["image"].shape == ref["image"].shape
+        assert d <= SAME_TOL, f"{tag}: sharded vs unsharded image {d}"
+        assert ds <= 1e-6, f"{tag}: sharded vs unsharded particles {ds}"
+        for k in ("alive", "pairs_kept"):
+            if k in ref["stats"]:
+                assert rec["stats"][k] == ref["stats"][k], (tag, k)
+        assert rec["launches"]["warp_march"] == want, (tag, rec["launches"])
+        assert rec["launches"]["warp_composite"] == want, \
+            (tag, rec["launches"])
+        ms = {k: [w * 1e3 for w in v] for k, v in rec["times"].items()}
+        med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+        print(f"[mesh] {tag}: {med['sharded']:.3f} ms/frame at mesh 1 (NCCL, "
+              f"one rank process) vs {med['unsharded']:.3f} unsharded, "
+              f"ratio {med['sharded'] / med['unsharded']:.3f}; windows in "
+              f"turns, mesh 1 {[round(w, 3) for w in ms['sharded']]}, "
+              f"unsharded {[round(w, 3) for w in ms['unsharded']]}  "
+              f"[{card}]")
+        out[tag] = dict(rec, ms=med["sharded"])
+    time_loop("c1 exact mesh 1", None, refs["c1 exact"]["cfg"], card, fb=4,
+              n_frames=16, warmup=1, mesh=1)
+    return out
+
+
 def bench_cli(prepared, card):
     """--bench on c3 through the command line, on the state already set
     up: its one JSON line."""
@@ -1397,7 +1620,7 @@ def main() -> int:
     from volq_torch.render import kernel as K
     from volq_torch.render.warp import (bake_slab_banks, fused_inputs,
                                         render_warp)
-    from volq_torch.scene.config import c3, c4, c5
+    from volq_torch.scene.config import c1, c3, c4, c5
     from volq_torch.scene.state import bake_volumes
     from volq_torch.sim.step import sim_step
 
@@ -1421,6 +1644,14 @@ def main() -> int:
     c1_times = time_c1_warp(card, errs)
     c2_times, c2_counts = run_c2(card, errs)
 
+    # ---- the slab engine; the unsharded frames the mesh phase holds its
+    # sharded ones to (c1 exact, c2 slab, c3 and c5 with the fp32 canvas
+    # the binary swap requires)
+    refs = {"c1 exact": None, "c2 slab bf16": run_slab(card)}
+    c1e = c1()
+    state, camera, light = loop.setup(c1e)
+    refs["c1 exact"] = mesh_ref(state, camera, light, c1e, None, None)
+
     # ---- c3: the unlit fused path
     cfg = c3()
     t0 = time.perf_counter()
@@ -1434,6 +1665,8 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[setup] c3 slab banks {tuple(sb[0].shape)} {sb[0].dtype}: "
           f"{time.perf_counter() - t0:.2f} s")
+    c3m = _with(cfg, warp_canvas_fp32=True)
+    refs["c3"] = mesh_ref(state, camera, light, c3m, None, sb)
     # inputs of the first frame, for the kernel checks
     check_fused("c3", sim_step(state, cfg), camera, light, cfg, None, errs)
     fused = {"warp_march": 1, "warp_composite": 1}
@@ -1555,6 +1788,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
     assert loop.cached_light_volumes(state, light, cfg) is None
     assert loop.cached_slab_banks(state, None, cfg) is None
+    refs["c5"] = mesh_ref(state, camera, light,
+                          _with(cfg, warp_canvas_fp32=True), None, None)
     st1 = sim_step(state, cfg)
     lv = loop._light_volumes(st1, light, cfg)
     for what, fn in (
@@ -1583,6 +1818,11 @@ def main() -> int:
                           sweep=True)
     time_loop("c5", (state, camera, light, None, None), cfg, card,
               fb=N_FRAMES_C5, n_frames=N_FRAMES_C5, warmup=0)
+    del state
+    torch.cuda.empty_cache()
+
+    # ---- the sharded frame at mesh 1 (one rank process, NCCL)
+    mesh_recs = run_mesh(card, refs)
 
     sources = {name: f"volq_torch/csrc/{name}.cu" for name in NAMES + PROBES}
     replaces = {"warp_march": "volq/render/kernel.py:175",
@@ -1601,6 +1841,12 @@ def main() -> int:
              "max_abs_err": errs[name], **c4_times[name],
              "library_ms": None, "path": "c4"}
         # the other paths through the same kernel
+        # launches through the sharded frame's route (mesh 1)
+        for tag in ("c3", "c5"):
+            if name in ("warp_march", "warp_composite"):
+                k[f"{tag}_mesh1"] = {
+                    "launches": mesh_recs[tag]["launches"][name],
+                    "frame_ms": mesh_recs[tag]["ms"]}
         for path, counts, times in (("c1_warp", c1_counts, c1_times),
                                     ("c2", c2_counts, c2_times),
                                     ("c3", c3_counts, c3_times),

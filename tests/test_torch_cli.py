@@ -1,6 +1,6 @@
 """The port's command line (python -m volq_torch.cli) on the CPU: the
 cases of tests/test_cli.py with ``--device cpu`` and the same shrunk c1,
-plus what the port adds (``--device``, ``--mesh`` refused) and the first
+plus what the port adds (``--device``, ``--mesh`` over gloo) and the first
 frame of c1 through both packages' CLIs (within 1e-5: XLA's jit contracts
 multiply-adds, the port rounds op by op)."""
 import json
@@ -199,21 +199,51 @@ def test_cli_bench_prints_one_json_line(capsys):
     assert rec["stats"]["alive"] == 8 and rec["stats"]["pairs_kept"] > 0
 
 
-def test_cli_mesh_and_missing_card_raise(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        main(["--preset", "c1", "--frames", "1", "--mesh", "8", "--out",
-              str(tmp_path / "m")] + _SHRINK + _CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        main(["--preset", "c1", "--bench", "--mesh", "8"] + _SHRINK + _CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        main(["--preset", "c1", "--set", "render.engine=slab", "--out",
-              str(tmp_path / "s")] + _SHRINK + _CPU)
+def test_cli_mesh_and_missing_card_raise(tmp_path, monkeypatch, capsys):
+    """--mesh 2 --device cpu runs the sharded frame over two gloo
+    processes: its frame equals the unsharded run's within 1e-5, its
+    checkpoint (the whole state, gathered) equals the unsharded one, and
+    --bench reports "mesh": 2.  The slab engine renders.  Without
+    --device cpu nothing carries on on the CPU: no card raises, and a
+    mesh needs a card per rank."""
+    one, two = tmp_path / "one", tmp_path / "two"
+    # 24 pairs are kept: a budget of 64 keeps the march, and --bench's
+    # 39 frames or more, short
+    small = _SHRINK + _CPU + ["--set", "render.max_pairs=64"]
+    flags = ["--preset", "c1", "--frames", "2", "--npy"] + small
+    main(flags + ["--out", str(one), "--checkpoint", str(one / "ck.npz")])
+    rc = main(flags + ["--out", str(two), "--mesh", "2",
+                       "--checkpoint", str(two / "ck.npz")])
+    assert rc == 0
+    a, b = np.load(one / "frame_0001.npy"), np.load(two / "frame_0001.npy")
+    assert a[..., 3].max() > 0.05 and np.abs(a - b).max() <= 1e-5
+    ck1, ck2 = np.load(one / "ck.npz"), np.load(two / "ck.npz")
+    assert set(ck1.files) == set(ck2.files)
+    for k in ck1.files:
+        assert np.array_equal(ck1[k], ck2[k]), k
+    capsys.readouterr()
+    main(["--preset", "c1", "--bench", "--mesh", "2", "--frames", "1",
+          "--frames-per-launch", "2"] + small)
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["mesh"] == 2 and rec["frame_ms"] > 0
+    assert rec["stats"]["alive"] == 8 and rec["stats"]["pairs_kept"] > 0
+    slab = tmp_path / "s"
+    main(["--preset", "c1", "--frames", "1", "--npy", "--set",
+          "render.engine=slab", "--out", str(slab)] + _SHRINK + _CPU)
+    img = np.load(slab / "frame_0000.npy")
+    assert np.isfinite(img).all() and img[..., 3].max() > 0.05
     # without --device cpu and without a card nothing carries on
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for extra in ([], ["--bench"]):
+    for extra in ([], ["--bench"], ["--mesh", "2"]):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(["--preset", "c1", "--frames", "1", "--out",
                   str(tmp_path / "n")] + extra + _SHRINK)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for extra in ([], ["--bench"]):
+        with pytest.raises(ValueError, match="need 2 devices, have 1"):
+            main(["--preset", "c1", "--frames", "1", "--mesh", "2",
+                  "--out", str(tmp_path / "n")] + extra + _SHRINK)
 
 
 def test_cli_profile_writes_a_trace(tmp_path):

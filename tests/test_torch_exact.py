@@ -33,6 +33,7 @@ from volq_torch.engine import loop as TL
 from volq_torch.render import render_frame
 from volq_torch.render.binning import bin_particles
 from volq_torch.render.exact import render
+from volq_torch.render.slab import render_slab
 
 JAX_TOL = 1e-5
 ORACLE_TOL = 1e-3
@@ -240,10 +241,10 @@ def test_empty_scene_is_background():
 
 
 def test_engine_dispatch(tiny_cfg):
-    """render_frame takes the exact engine (both projections) and the
-    warp engine (its XLA path, the default, and its Pallas path under an
-    ortho camera) and still raises for the slab engine, naming the
-    ROADMAP item."""
+    """render_frame takes the exact engine (both projections), the slab
+    engine (render_slab, lit or not; the loop bakes its light bank and no
+    slab banks) and the warp engine (its XLA path, the default, and its
+    Pallas path under an ortho camera)."""
     cfg = _port(tiny_cfg)
     state, camera, light = TL.setup(cfg, device="cpu")
     img, _ = render_frame(state.particles, state.volumes, camera, light, cfg)
@@ -253,11 +254,16 @@ def test_engine_dispatch(tiny_cfg):
     assert TL.cached_light_volumes(state, light, cfg) is None
     TL.setup(_port(_ortho_c1()), device="cpu")
     rep = dataclasses.replace
-    slab = rep(cfg, render=rep(cfg.render, engine="slab"))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        render_frame(state.particles, state.volumes, camera, light, slab)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        TL.setup(slab, device="cpu")
+    slab = rep(cfg, render=rep(cfg.render, engine="slab", light_steps=4))
+    st, cam, li = TL.setup(slab, device="cpu")
+    lv = TL.cached_light_volumes(st, li, slab)
+    assert lv is not None and TL.cached_slab_banks(st, lv, slab) is None
+    img, stats = render_frame(st.particles, st.volumes, cam, li, slab,
+                              light_volumes=lv)
+    ref, _ = render_slab(st.particles, st.volumes, cam, li, slab,
+                         light_volumes=lv)
+    assert torch.equal(img, ref) and float(img[..., 3].max()) > 0.05
+    assert int(stats["pairs_kept"]) > 0
     for good in (rep(cfg, render=rep(cfg.render, engine="warp")),
                  rep(cfg, camera=rep(cfg.camera, projection="ortho",
                                      ortho_half_h=2.0),

@@ -158,5 +158,14 @@ def test_run_and_time_frames_on_cpu():
     dt, last = TL.time_frames(c4, 1, warmup=0, fb=1, windows=1,
                               device="cpu")
     assert dt > 0 and last["alive"] > 0
-    with pytest.raises(NotImplementedError):
-        TL.time_frames(cfg, 1, mesh=2, device="cpu")
+    # the sharded loop over two gloo processes (the binary swap needs the
+    # fp32 canvas)
+    band = []
+    fp32 = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, warp_canvas_fp32=True))
+    dt, last = TL.time_frames(fp32, 2, warmup=0, fb=2, windows=2, mesh=2,
+                              window_times=band, device="cpu")
+    assert dt > 0 and len(band) == 2 and last["alive"] > 0
+    with pytest.raises(ValueError, match="prepared"):
+        TL.time_frames(cfg, 1, mesh=2, device="cpu",
+                       prepared=(state, camera, light, None, sb))

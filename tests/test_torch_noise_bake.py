@@ -85,3 +85,24 @@ def test_bake_chunking_is_invisible(monkeypatch):
     whole = tb.bake_bank(6, 16, 3, octaves=3, device="cpu")
     monkeypatch.setattr(tb, "_CHUNK_VOXELS", 16 ** 3 * 4)   # 4 per chunk
     assert torch.equal(tb.bake_bank(6, 16, 3, octaves=3, device="cpu"), whole)
+
+
+def test_bake_bank_4d_ids_select_entries(monkeypatch):
+    """``ids`` bakes the named global entries (the sharded frame splits
+    the animated bake over ranks this way): equal to those entries of
+    the whole bank, in any order and across bake chunks; the JAX
+    package's ``ids`` selects the same entries."""
+    kw = dict(octaves=2, noise_scale=4.5, time_scale=0.5)
+    whole = tb.bake_bank_4d(6, 12, 5, 0.75, device="cpu", **kw)
+    monkeypatch.setattr(tb, "_CHUNK_VOXELS", 12 ** 3 * 2)   # 2 per chunk
+    ids = [4, 1, 5]
+    got = tb.bake_bank_4d(6, 12, 5, 0.75, device="cpu",
+                          ids=torch.tensor(ids), **kw)
+    assert torch.equal(got, whole[ids])
+    ref = np.asarray(jb.bake_bank_4d(6, 12, 5, 0.75, ids=jnp.asarray(ids),
+                                     **kw).astype(jnp.float32), np.float64)
+    full = np.asarray(jb.bake_bank_4d(6, 12, 5, 0.75, **kw)
+                      .astype(jnp.float32), np.float64)
+    assert np.array_equal(ref, full[ids])
+    diff = np.abs(ref - got.float().numpy())
+    assert ref.max() > 0.05 and (diff <= _bf16_ulp(ref)).all()

@@ -22,6 +22,7 @@ from volq.render import warp as jw
 import volq_torch.scene.config as TC
 from volq_torch.convert import (state_from_numpy, camera_from_numpy,
                                 light_from_numpy)
+from volq_torch.engine import loop as TL
 from volq_torch.render import kernel as K
 from volq_torch.render import warp as tw
 
@@ -145,7 +146,7 @@ def test_grid_geometry_matches(tiny_cfg, view):
         assert int(stats[k]) == int(ref_stats[k]), k
 
 
-UNSUPPORTED = [
+FLAGS = [
     dict(engine="slab"),
     dict(warp_pallas=False),
     dict(light_steps=4, light_mode="march"),
@@ -156,38 +157,37 @@ UNSUPPORTED = [
     dict(warp_bands=2),
     dict(warp_hazard_passes=1),
 ]
-STILL_OUTSIDE = ("engine",)
 
 
-@pytest.mark.parametrize("kw", UNSUPPORTED, ids=lambda kw: ",".join(kw))
+@pytest.mark.parametrize("kw", FLAGS, ids=lambda kw: ",".join(kw))
 def test_flags_outside_the_slice_raise(tiny_cfg, kw):
-    """Only the slab engine still raises, naming the ROADMAP item.  Every
-    other flag has joined the port (the XLA warp path:
-    tests/test_torch_warp_xla.py; the rest: test_torch_warp_c5.py,
-    test_torch_perstep.py) and is accepted under both projections."""
+    """No flag lies outside the port any more: each of these (the slab
+    engine among them) renders a finite frame through the loop under
+    both projections.  Their images are held to the reference
+    elsewhere (the slab engine: tests/test_torch_slab.py; the XLA warp
+    path: test_torch_warp_xla.py; the rest: test_torch_warp_c5.py,
+    test_torch_perstep.py)."""
     base = c3_flags(tiny_cfg)
     cfg = _port(dataclasses.replace(
         base, render=dataclasses.replace(base.render, **kw)))
     ortho = dataclasses.replace(cfg, camera=dataclasses.replace(
-        cfg.camera, projection="ortho"))
-    if set(kw) & set(STILL_OUTSIDE):
-        for c in (cfg, ortho):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                tw.check_supported(c)
-    else:
-        tw.check_supported(cfg)
-        tw.check_supported(ortho)
+        cfg.camera, projection="ortho", ortho_half_h=2.0))
+    for c in (cfg, ortho):
+        st, cam, li = TL.setup(c, device="cpu")
+        img, stats = TL.render_only(st, cam, li, c)
+        assert tuple(img.shape) == (64, 128, 4)
+        assert bool(torch.isfinite(img).all())
+        assert float(img[..., 3].max()) > 0.05 and int(stats["alive"]) > 0
 
 
 def test_ortho_and_animated_raise(tiny_cfg):
-    """An ortho camera is accepted and renders through the Pallas path's
-    kernels (their plain versions here: A and B in their orthographic
-    mode), as do animated volumes, alone and with every flag that joined
-    the port with them."""
+    """An ortho camera renders through the Pallas path's kernels (their
+    plain versions here: A and B in their orthographic mode), as do
+    animated volumes, alone and with every flag that joined the port
+    with them."""
     base = _port(c3_flags(tiny_cfg))
     ortho = dataclasses.replace(base, camera=dataclasses.replace(
         base.camera, projection="ortho", ortho_half_h=2.0))
-    tw.check_supported(ortho)
     st, cam, li, tst, tcam, tli = _scene(c3_flags(tiny_cfg))
     from volq_torch.scene.state import build_camera
     ocam = build_camera(ortho.camera, 128, 64, "cpu")
@@ -197,18 +197,15 @@ def test_ortho_and_animated_raise(tiny_cfg):
     assert int(stats["rendered"]) > 0 and int(stats["straddled"]) == 0
     animated = dataclasses.replace(base, volume=dataclasses.replace(
         base.volume, animated=True))
-    tw.check_supported(animated)
-    tw.check_supported(dataclasses.replace(
-        animated, render=dataclasses.replace(
-            animated.render, warp_coarse=1, warp_interleave=1,
-            warp_bands=2, warp_canvas_vmem=1, warp_hazard_passes=1,
-            light_steps=4)))
-    tw.check_supported(TC.c5())
-    c4 = TC.c4()
-    for fused in (True, False):
-        tw.check_supported(dataclasses.replace(
-            c4, render=dataclasses.replace(c4.render, light_mode="march",
-                                           warp_fused=fused)))
+    for c in (animated, dataclasses.replace(
+            animated, render=dataclasses.replace(
+                animated.render, warp_coarse=1, warp_interleave=1,
+                warp_bands=2, warp_canvas_vmem=1, warp_hazard_passes=1,
+                light_steps=4))):
+        s, cam_, li_ = TL.setup(c, device="cpu")
+        s, img, stats = TL.frame(s, cam_, li_, c)
+        assert bool(torch.isfinite(img).all())
+        assert float(img[..., 3].max()) > 0.05 and int(stats["rendered"]) > 0
 
 
 @pytest.mark.parametrize("fp32", [False, True], ids=["bf16", "fp32"])

@@ -5,6 +5,7 @@ nothing of ``volq``.
 
 Layout mirrors ``volq/``: ``scene/`` (config, init), ``core/`` (types,
 camera), ``volume/`` (noise, bake), ``sim/`` (threefry PRNG, emission,
-forces, step), ``render/`` (warp engine + kernel wrappers),
-``engine/`` (frame loop), ``convert.py`` (numpy <-> port state).
+forces, step), ``render/`` (the exact, slab and warp engines + kernel
+wrappers), ``engine/`` (frame loop), ``dist/`` (the sharded frame on
+``torch.distributed``), ``convert.py`` (numpy <-> port state).
 """

@@ -8,6 +8,8 @@ Examples:
   python -m volq_torch.cli --config my.json --frames 60 --checkpoint ck.npz
   python -m volq_torch.cli --preset c1 --set render.steps=64 --frames 1 --png
   python -m volq_torch.cli --preset c1 --device cpu --frames 2 --png
+  python -m volq_torch.cli --preset c3 --mesh 2 --frames 4 --png
+  python -m volq_torch.cli --preset c1 --device cpu --mesh 4 --frames 2
 """
 from __future__ import annotations
 
@@ -79,8 +81,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--checkpoint", help="save final state here (.npz)")
     ap.add_argument("--resume", help="load state from this checkpoint")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="shard over this many devices (0 = single; the "
-                    "sharded loop is not ported yet)")
+                    help="shard each frame over this many ranks, one "
+                    "process each (0 = unsharded): CUDA cards over NCCL, "
+                    "or with --device cpu CPU processes over gloo")
     ap.add_argument("--profile", metavar="DIR",
                     help="write a torch.profiler trace of the frame loop "
                     "to DIR/trace.json")
@@ -111,19 +114,13 @@ def main(argv=None, prepared=None):
     if args.dump_config:
         print(to_json(cfg))
         return 0
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: the sharded loop is not ported yet (ROADMAP Queue 1 "
-            "item 12)")
 
     from volq_torch.core.device import resolve_device
-    from volq_torch.engine import loop, io, checkpoint
-    from volq_torch.render import check_supported
-    from volq_torch.scene.state import build_camera, build_light
+    from volq_torch.engine import loop
 
     if args.bench:
         # the shared harness (engine/loop.time_frames): frames batched per
-        # call, fenced by CUDA events, median of 3 windows
+        # call, fenced by CUDA events, median of 3 windows; honours --mesh
         fb = max(args.frames_per_launch, 1) if args.frames_per_launch > 1 \
             else 48
         dt, stats = loop.time_frames(cfg, max(args.frames, 12), fb=fb,
@@ -140,39 +137,91 @@ def main(argv=None, prepared=None):
         }))
         return 0
 
+    if args.mesh:
+        from volq_torch.dist import check_mesh, launch, make_mesh
+        mesh = make_mesh(args.mesh, args.device)
+        check_mesh(cfg, mesh.size)
+        launch(mesh, _mesh_rank, args, cfg)
+        return 0
+
+    from volq_torch.engine import checkpoint
     device = resolve_device(args.device)
-    os.makedirs(args.out, exist_ok=True)
+    state, camera, light, cfg = _start(args, cfg, device)
+    lv = loop.cached_light_volumes(state, light, cfg)
+    sb = loop.cached_slab_banks(state, lv, cfg)
 
-    if args.resume:
-        # the checkpoint's cfg is authoritative (then re-overridden)
-        state, cfg = checkpoint.load_state(args.resume, device)
-        for s in args.set:
-            cfg = _apply_override(cfg, s)
-        check_supported(cfg)
-        camera = build_camera(cfg.camera, cfg.render.width,
-                              cfg.render.height, device)
-        light = build_light(cfg.light, device)
-    else:
-        state, camera, light = loop.setup(cfg, device)
+    def step(st, cam, n):
+        if n == 1:
+            return loop.frame(st, cam, light, cfg, lv, sb)
+        st, image, stats = loop.frames(st, cam, light, cfg, lv, sb, n=n)
+        return st, image, {k: v[-1] for k, v in stats.items()}
 
+    state = render_frames(args, cfg, device, state, camera, step)
+    if args.checkpoint:
+        checkpoint.save_state(args.checkpoint, state, cfg)
+    return 0
+
+
+def _mesh_rank(rank, mesh, device, args, cfg):
+    """Rank ``rank`` of ``--mesh`` (``dist.launch``): every rank steps
+    its particle shard, rank 0 alone writes and prints, and the
+    checkpoint holds the whole state."""
+    from volq_torch.dist import gather_state, shard_state, sharded_frame_fn
+    from volq_torch.engine import checkpoint
+    state, camera, light, cfg = _start(args, cfg, device)
+    frs = {}
+
+    def step(st, cam, n):
+        if n not in frs:
+            frs[n] = sharded_frame_fn(cfg, mesh, n_frames_per_call=n)
+        return frs[n](st, cam, light)
+
+    state = render_frames(args, cfg, device, shard_state(state, mesh, rank),
+                          camera, step, lead=rank == 0)
+    if args.checkpoint:
+        state = gather_state(state)
+        if rank == 0:
+            checkpoint.save_state(args.checkpoint, state, cfg)
+
+
+def _start(args, cfg, device):
+    """(state, camera, light, cfg) of ``main``'s run: set up, or resumed
+    from ``args.resume`` (whose cfg is authoritative, then re-overridden
+    by ``--set``)."""
+    from volq_torch.engine import loop, checkpoint
+    from volq_torch.scene.state import build_camera, build_light
+
+    if not args.resume:
+        return (*loop.setup(cfg, device), cfg)
+    state, cfg = checkpoint.load_state(args.resume, device)
+    for s in args.set:
+        cfg = _apply_override(cfg, s)
+    camera = build_camera(cfg.camera, cfg.render.width, cfg.render.height,
+                          device)
+    return state, camera, build_light(cfg.light, device), cfg
+
+
+def render_frames(args, cfg, device, state, camera, step, lead=True):
+    """The frame loop of ``main``: render ``args.frames`` frames from
+    ``state``, ``step(state, camera, n) -> (state, image, stats)``
+    advancing ``n`` of them, and return the last state.  Only a
+    ``lead`` caller writes the outputs and prints."""
+    from volq_torch.engine import io
+    from volq_torch.scene.state import build_camera
+
+    if lead:
+        os.makedirs(args.out, exist_ok=True)
     fpl = max(args.frames_per_launch, 1)
     if args.gif and fpl > 1:
         # batched launches only return the LAST frame of each call: a
         # fpl > 1 GIF would silently skip fpl - 1 of every fpl frames
-        print("note: --gif captures every frame; forcing "
-              "--frames-per-launch 1", file=sys.stderr)
+        if lead:
+            print("note: --gif captures every frame; forcing "
+                  "--frames-per-launch 1", file=sys.stderr)
         fpl = 1
-    lv = loop.cached_light_volumes(state, light, cfg)
-    sb = loop.cached_slab_banks(state, lv, cfg)
-
-    def step(st, n):
-        if n == 1:
-            return loop.frame(st, camera, light, cfg, lv, sb)
-        st, image, stats = loop.frames(st, camera, light, cfg, lv, sb, n=n)
-        return st, image, {k: v[-1] for k, v in stats.items()}
 
     profiler = None
-    if args.profile:
+    if args.profile and lead:
         from torch.profiler import profile, ProfilerActivity
         acts = [ProfilerActivity.CPU]
         if device.type == "cuda":
@@ -211,7 +260,9 @@ def main(argv=None, prepared=None):
     for i, n_launch in enumerate(launches):
         if cam_path:
             camera = camera_at(i / max(len(launches) - 1, 1))
-        state, image, stats = step(state, n_launch)
+        state, image, stats = step(state, camera, n_launch)
+        if not lead:
+            continue
         host_image = image.cpu().numpy()
         if args.png or not (args.npy or args.gif):
             io.save_png(os.path.join(args.out, f"frame_{i:04d}.png"),
@@ -226,6 +277,8 @@ def main(argv=None, prepared=None):
         print(f"frame {i}: " + " ".join(f"{k}={v}" for k, v in
                                         sorted(host.items())),
               file=sys.stderr)
+    if not lead:
+        return state
     dt = time.perf_counter() - t_start
     print(f"{args.frames} frames in {dt:.2f}s "
           f"({args.frames / dt:.1f} fps incl. IO)", file=sys.stderr)
@@ -240,10 +293,7 @@ def main(argv=None, prepared=None):
         trace = os.path.join(args.profile, "trace.json")
         profiler.export_chrome_trace(trace)
         print(f"profiler trace written to {trace}", file=sys.stderr)
-
-    if args.checkpoint:
-        checkpoint.save_state(args.checkpoint, state, cfg)
-    return 0
+    return state
 
 
 if __name__ == "__main__":

@@ -6,7 +6,9 @@ of the loop waits for a later slice).  An animated scene
 (``volume.animated``) re-bakes its volume bank from the simulation time
 after every sim step, and with it the light bank and the slab banks.
 Everything stays on the state's device; the image leaves it only when
-the caller fetches it.
+the caller fetches it.  ``time_frames(mesh=N)`` times the sharded frame
+(``dist/``) on N ranks instead, and ``run_sharded`` runs it on a mesh
+and brings back rank 0's images and the whole state.
 """
 from __future__ import annotations
 
@@ -17,21 +19,18 @@ import torch
 from volq_torch.core.device import resolve_device
 from volq_torch.core.types import SceneState
 from volq_torch.render import render_frame
-from volq_torch.render.warp import bake_slab_banks, check_supported
+from volq_torch.render.warp import bake_slab_banks
 from volq_torch.scene.config import SceneConfig
 from volq_torch.scene.state import (init_scene, build_camera, build_light,
                                     bake_volumes)
 from volq_torch.sim.step import sim_step
-from volq_torch.volume.lightbake import bake_light_volumes, dominant_axis
+from volq_torch.volume.lightbake import render_light_volumes
 
 
 def _light_volumes(state: SceneState, light, cfg: SceneConfig):
     """The baked light optical depth of the state's volumes for the lit
     modes (``light_steps > 0``), else None."""
-    if cfg.render.engine in ("slab", "warp") and cfg.render.light_steps > 0:
-        return bake_light_volumes(state.volumes, light.direction,
-                                  axis=dominant_axis(cfg.light.direction))
-    return None
+    return render_light_volumes(state.volumes, light, cfg)
 
 
 def _frame_body(state: SceneState, camera, light, cfg: SceneConfig,
@@ -108,7 +107,6 @@ def setup(cfg: SceneConfig, device=None):
     """Config -> (state, camera, light) on ``device`` (the CUDA card when
     None; raises when there is none).  Bakes the volume bank."""
     device = resolve_device(device)
-    check_supported(cfg)
     camera = build_camera(cfg.camera, cfg.render.width, cfg.render.height,
                           device)
     light = build_light(cfg.light, device)
@@ -149,22 +147,40 @@ def time_frames(cfg: SceneConfig, n_frames: int, *, warmup: int = 2,
     ``window_times`` receives each window's seconds per frame.
     ``prepared`` = (state, camera, light, light_volumes, slab_banks)
     from ``setup``, ``cached_light_volumes`` and ``cached_slab_banks``
-    skips all three (and ``device``): nothing is baked again."""
+    skips all three (and ``device``): nothing is baked again.  ``mesh``
+    > 0 runs the sharded frame (``dist/``) on that many ranks of
+    ``device`` (None: one per CUDA card, over NCCL; "cpu": gloo
+    processes), ``fb`` frames a call, timed on rank 0."""
     if mesh:
-        raise NotImplementedError("the sharded loop is not ported yet "
-                                  "(ROADMAP Queue 1 item 12)")
+        if prepared is not None:
+            raise ValueError("prepared is for the unsharded loop; the "
+                             "ranks of a mesh set up their own scene")
+        from volq_torch.dist import check_mesh, launch, make_mesh
+        m = make_mesh(mesh, device)
+        check_mesh(cfg, m.size)
+        spf, last, times = launch(m, _time_rank, cfg, n_frames, warmup, fb,
+                                  windows)
+        if window_times is not None:
+            window_times.extend(times)
+        return spf, last
     if prepared is None:
         state, camera, light = setup(cfg, device)
         lv = cached_light_volumes(state, light, cfg)
         sb = cached_slab_banks(state, lv, cfg)
     else:
-        check_supported(cfg)
         state, camera, light, lv, sb = prepared
+    return time_loop(lambda st: frames(st, camera, light, cfg, lv, sb, n=fb),
+                     state, n_frames, fb, warmup, windows, window_times)
+
+
+def time_loop(step, state, n_frames: int, fb: int, warmup: int,
+              windows: int, window_times: list | None = None):
+    """Time ``step(state) -> (state, image, stats)``, which advances
+    ``fb`` frames: 1 + ``warmup`` calls, then ``windows`` windows of
+    ceil(n_frames / fb) calls, each fenced by CUDA events on the state's
+    card (on the CPU, by the host clock).  Returns (the median window's
+    seconds per frame, host stats of the last frame)."""
     cuda = state.volumes.device.type == "cuda"
-
-    def step(st):
-        return frames(st, camera, light, cfg, lv, sb, n=fb)
-
     for _ in range(1 + warmup):
         state, image, stats = step(state)
     reps = max(-(-n_frames // fb), 1)
@@ -187,5 +203,93 @@ def time_frames(cfg: SceneConfig, n_frames: int, *, warmup: int = 2,
         dts.append(dt / (reps * fb))
     if window_times is not None:
         window_times.extend(dts)
-    last = {k: int(v[-1]) for k, v in stats.items()}
+    last = {k: int(v.reshape(-1)[-1]) for k, v in stats.items()}
     return sorted(dts)[len(dts) // 2], last
+
+
+def _time_rank(rank, mesh, device, cfg, n_frames, warmup, fb, windows):
+    from volq_torch.dist import shard_state, sharded_frame_fn
+    state, camera, light = setup(cfg, device)
+    state = shard_state(state, mesh, rank)
+    fr = sharded_frame_fn(cfg, mesh, n_frames_per_call=fb)
+    times = []
+    spf, last = time_loop(lambda st: fr(st, camera, light), state,
+                          n_frames, fb, warmup, windows, times)
+    return spf, last, times
+
+
+# the kernel wrappers whose launches a rank of run_sharded reports
+_KERNELS = ("warp_march", "warp_composite", "warp_images", "composite_chunk")
+
+
+def _turns(whole, shard, camera, light, cfg, mesh, n_frames, fb, warmup,
+           turns):
+    """This rank's unsharded loop (on the whole state) and sharded loop
+    (on its shard) of ``cfg`` timed in turns, ``turns`` windows each:
+    {"unsharded": [...], "sharded": [...]} seconds per frame."""
+    from volq_torch.dist import sharded_frame_fn
+    lv = cached_light_volumes(whole, light, cfg)
+    sb = cached_slab_banks(whole, lv, cfg)
+    fr = sharded_frame_fn(cfg, mesh, n_frames_per_call=fb)
+    loops = {"unsharded": (lambda st: frames(st, camera, light, cfg, lv, sb,
+                                             n=fb), whole),
+             "sharded": (lambda st: fr(st, camera, light), shard)}
+    times = {k: [] for k in loops}
+    for _ in range(turns):
+        for k, (step, st) in loops.items():
+            time_loop(step, st, n_frames, fb, warmup, 1, times[k])
+    return times
+
+
+def _run_rank(rank, mesh, device, jobs, timing):
+    from volq_torch.convert import state_to_numpy
+    from volq_torch.dist import gather_state, shard_state, sharded_frame_fn
+    from volq_torch.render import kernel as K
+    records = []
+    for cfg, n_frames, per_call in jobs:
+        whole, camera, light = setup(cfg, device)
+        state = shard = shard_state(whole, mesh, rank)
+        wire = {}
+
+        def on_send(payload):
+            key = str(payload.dtype)
+            wire[key] = wire.get(key, 0) \
+                + payload.numel() * payload.element_size()
+
+        fr = sharded_frame_fn(cfg, mesh, per_call, on_send=on_send)
+        for fn in _KERNELS:
+            getattr(K, fn).launches = 0
+        for _ in range(n_frames // per_call):
+            state, image, stats = fr(state, camera, light)
+        launches = {fn: getattr(K, fn).launches for fn in _KERNELS}
+        state = gather_state(state)
+        rec = dict(launches=launches, wire=wire)
+        if timing is not None:
+            rec["times"] = _turns(whole, shard, camera, light, cfg, mesh,
+                                  *timing)
+        if rank == 0:
+            records.append(dict(
+                rec, state=state_to_numpy(state), image=image.cpu().numpy(),
+                stats={k: int(v) for k, v in stats.items()}))
+    return records
+
+
+def run_sharded(mesh, jobs, timing=None) -> list:
+    """For each job (cfg, n_frames, n_frames_per_call) in turn, set
+    ``cfg`` up on every rank of ``mesh`` (``dist.make_mesh``) and
+    advance ``n_frames`` sharded frames, ``n_frames_per_call`` a call
+    (it must divide ``n_frames``).  One set of rank processes runs every
+    job.  Returns rank 0's record of each job: ``state`` (the whole
+    final state, numpy), ``image`` (the last frame, numpy), ``stats``,
+    ``launches`` (rank 0's kernel launches over the frames) and ``wire``
+    (the bytes rank 0 handed to the binary swap's wire, by dtype).
+    ``timing`` = (n_frames, fb, warmup, turns) then times, on each
+    rank, the unsharded loop of the job's initial state and the sharded
+    loop of its shard in turns (``time_loop``, one window a turn): the
+    record's ``times``, rank 0's seconds per frame of each window."""
+    from volq_torch.dist import check_mesh, launch
+    for cfg, n_frames, per_call in jobs:
+        check_mesh(cfg, mesh.size)
+        if n_frames % per_call:
+            raise ValueError("n_frames_per_call must divide n_frames")
+    return launch(mesh, _run_rank, list(jobs), timing)

@@ -130,8 +130,7 @@ class CanvasGeom(NamedTuple):
 
 
 def canvas_geom(cfg: SceneConfig, h_local: int) -> CanvasGeom:
-    from volq_torch.render.warp import check_supported, march_rect
-    check_supported(cfg)
+    from volq_torch.render.warp import march_rect
     r = cfg.render
     RP, RM = r.warp_rect, march_rect(cfg)
     coarse, ilv = bool(r.warp_coarse), bool(r.warp_interleave)

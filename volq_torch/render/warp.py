@@ -26,13 +26,12 @@ cell canvas of ``warp_coarse`` / ``warp_canvas_scale``, with or without
 horizontal bands; and the XLA path (``warp_pallas=False``, the warp
 engine's default) in plain torch (``warp_xla.py``), which streams the
 volumes.  An orthographic camera is a compile-time mode of kernels A and
-C.  ``check_supported`` raises NotImplementedError for the slab engine
-only.  Flags that change neither the image nor this path are accepted:
+C.  Flags that change neither the image nor this path are accepted:
 ``warp_pair`` and ``warp_pack`` (TPU MXU-tile pairing and grid packing,
 bit-identical), ``warp_canvas_vmem`` (where the TPU keeps its canvas:
 storage only), ``warp_hazard_passes`` (a reorder of depth-adjacent
 particles with disjoint canvas windows: no pixel's order changes),
-``warp_swap_bf16`` (sharded wire).
+``warp_swap_bf16`` (the wire of ``dist.sharded``'s binary swap).
 The Pallas path always marches from pre-lerped slab banks.  Where the
 reference streams the volumes instead (``use_slab_banks`` False:
 ``steps >= V`` or a block above its VMEM budget) its in-kernel lerp is
@@ -60,18 +59,6 @@ _MARCH_PERMS = {
     1: (((2, 0, 1), (0, 3, 1, 2)), ((0, 2, 1), (0, 3, 2, 1))),
     2: (((0, 1, 2), (0, 1, 2, 3)), ((1, 0, 2), (0, 1, 3, 2))),
 }
-
-
-def check_supported(cfg: SceneConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for a mode
-    outside the port (no flag is silently ignored; which flag
-    combinations are valid at all is ``scene/config.py``'s check).  The
-    exact and the warp engine are ported under both projections, the
-    warp engine on its Pallas path (kernels A-D) and its XLA path; the
-    slab engine is not."""
-    if cfg.render.engine == "slab":
-        raise NotImplementedError("volq_torch does not port the slab engine "
-                                  "yet (ROADMAP Queue 1 item 11)")
 
 
 def _static_camera(cfg: SceneConfig):
@@ -210,7 +197,6 @@ def bake_slab_banks(volumes, light_volumes, cfg: SceneConfig):
     ``light_steps > 0``.  Cache it across frames for static scenes.
     None on the XLA path (``warp_pallas=False``), which streams the
     volumes, as the reference's ``use_slab_banks`` rules."""
-    check_supported(cfg)
     r = cfg.render
     if not r.warp_pallas:
         return None
@@ -457,15 +443,18 @@ def _cell_upsample(X, P: int, ratio: float, dim: int):
             * w1.reshape(shape))
 
 
-def _canvas_finish(C, T, cfg: SceneConfig, h_local: int):
+def _canvas_finish(C, T, cfg: SceneConfig, h_local: int, cropped=False):
     """Crop the padded canvas and compose over the background ->
     [h_local, W, 4] fp32 (premultiplied RGB, alpha).  A cell canvas
     (warp_coarse / warp_canvas_scale) is first upsampled to pixels, rows
-    then columns, one pass per frame."""
+    then columns, one pass per frame.  ``cropped``: the canvas starts at
+    the image (the sharded frame crops the padding before its binary
+    swap)."""
     r = cfg.render
     g = K.canvas_geom(cfg, h_local)
+    p0 = 0 if cropped else g.pad
     X = torch.cat([C, T[None]], dim=0)[
-        :, g.pad:g.pad + g.hc_img, g.pad:g.pad + g.wc_img].to(torch.float32)
+        :, p0:p0 + g.hc_img, p0:p0 + g.wc_img].to(torch.float32)
     if g.cells:
         X = _cell_upsample(X, h_local, g.ratio, 1)
         X = _cell_upsample(X, r.width, g.ratio, 2)
@@ -649,7 +638,6 @@ def render_warp_canvas(particles: Particles, volumes, camera: Camera,
     unreordered one; ``warp_canvas_vmem`` moves the TPU's canvas into
     on-chip memory, storage only.  All three are accepted and change
     nothing here."""
-    check_supported(cfg)
     r = cfg.render
     if h_local is None:
         h_local = r.height

@@ -38,13 +38,15 @@ def spawn_attrs(key, slot_ids, ecfg: EmitterConfig, bank_size: int):
                 albedo=albedo, vol_idx=vol_idx)
 
 
-def emission_step(dead_mask, spawn_carry, rate: float, dt):
-    """Which slots spawn this frame: the first floor(carry + rate*dt)
-    dead slots in slot order.  Returns (spawn_mask [N] bool, new_carry).
-    (The sharded rank offset waits for the dist/ port.)"""
+def emission_step(dead_mask, spawn_carry, rate: float, dt, rank_offset=0):
+    """Which local slots spawn this frame: the first floor(carry +
+    rate*dt) dead slots in global slot order.  ``rank_offset`` is the
+    number of dead slots on the ranks before this one (0 on one device),
+    so a particle-sharded step spawns exactly the single-device slots.
+    Returns (spawn_mask [N] bool, new_carry)."""
     budget = spawn_carry + rate * dt
     n_spawn = torch.floor(budget)
     new_carry = budget - n_spawn
-    rank = torch.cumsum(dead_mask.to(torch.int32), 0) - 1
+    rank = rank_offset + torch.cumsum(dead_mask.to(torch.int32), 0) - 1
     spawn_mask = dead_mask & (rank.to(torch.float32) < n_spawn)
     return spawn_mask, new_carry

@@ -1,4 +1,4 @@
-"""The simulation step (mirror of ``volq/sim/step.py``, single device).
+"""The simulation step (mirror of ``volq/sim/step.py``).
 
 Step order of record:
   1. key       = fold_in(base_key, frame)
@@ -8,12 +8,18 @@ Step order of record:
                  fresh attributes at age 0 (no advection on birth frame)
   5. advection = v += f(p, v, t) * dt ; p += v * dt  (alive, not spawned)
   6. frame += 1 ; time += dt
-(The particle-sharded step waits for the dist/ port.)
+
+With a process ``group`` the particle slots are sharded over its ranks
+(``dist/sharded.py``): the emission rank is made global with an
+exclusive prefix sum of the ranks' dead counts, and the slot ids (the
+per-slot PRNG keys) are offset by ``rank * n_local``, so every attribute
+equals the single-device step's.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from volq_torch.core.types import Particles, SceneState
 from volq_torch.scene.config import SceneConfig
@@ -22,7 +28,7 @@ from volq_torch.sim.emit import spawn_attrs, emission_step
 from volq_torch.sim.forces import total_force
 
 
-def sim_step(state: SceneState, cfg: SceneConfig) -> SceneState:
+def sim_step(state: SceneState, cfg: SceneConfig, group=None) -> SceneState:
     p = state.particles
     n = p.age.shape[0]
     dev = p.age.device
@@ -31,9 +37,17 @@ def sim_step(state: SceneState, cfg: SceneConfig) -> SceneState:
 
     age = p.age + dt
     dead = age >= p.lifetime
+    slot_offset = rank_offset = 0
+    if group is not None:
+        rank = dist.get_rank(group)
+        slot_offset = rank * n
+        counts = [torch.zeros((), dtype=torch.int64, device=dev)
+                  for _ in range(dist.get_world_size(group))]
+        dist.all_gather(counts, dead.sum(), group=group)
+        rank_offset = torch.stack(counts[:rank]).sum() if rank else 0
     spawn_mask, new_carry = emission_step(dead, state.spawn_carry,
-                                          cfg.emitter.rate, dt)
-    slot_ids = torch.arange(n, dtype=torch.int32, device=dev)
+                                          cfg.emitter.rate, dt, rank_offset)
+    slot_ids = slot_offset + torch.arange(n, dtype=torch.int32, device=dev)
     fresh = spawn_attrs(key, slot_ids, cfg.emitter, cfg.volume.bank_size)
 
     sm = spawn_mask

@@ -56,16 +56,18 @@ def _shape_density(n, r2, cutoff: float, edge: float = 0.9):
 
 
 def _bake(bank_size: int, size: int, seed: int, noise_of, noise_scale,
-          cutoff, edge, dtype, device):
+          cutoff, edge, dtype, device, ids=None):
     """The chunked bake both banks share: ``noise_of(xyz [k, V, V, V, 3],
-    ids [k])`` -> fBm [k, V, V, V]."""
+    ids [k])`` -> fBm [k, V, V, V]; entries ``ids`` (default: all)."""
     u = _lattice(size, device)
     r2 = _radius2(u)
-    out = torch.empty((bank_size, size, size, size), dtype=dtype,
-                      device=device)
+    all_ids = torch.arange(bank_size, device=device) if ids is None \
+        else torch.as_tensor(ids, device=device).to(torch.int64)
+    n = all_ids.shape[0]
+    out = torch.empty((n, size, size, size), dtype=dtype, device=device)
     chunk = max(1, _CHUNK_VOXELS // size ** 3)
-    for c0 in range(0, bank_size, chunk):
-        ids = torch.arange(c0, min(c0 + chunk, bank_size), device=device)
+    for c0 in range(0, n, chunk):
+        ids = all_ids[c0:c0 + chunk]
         off = _volume_offsets(ids, seed)                    # [k, 3]
         xyz = ((u - 0.5) * noise_scale)[None] + off[:, None, None, None]
         out[c0:c0 + ids.shape[0]] = _shape_density(
@@ -86,12 +88,15 @@ def bake_bank(bank_size: int, size: int, seed: int, *, octaves: int = 4,
 def bake_bank_4d(bank_size: int, size: int, seed: int, t, *,
                  octaves: int = 3, noise_scale: float = 4.0,
                  time_scale: float = 0.5, cutoff: float = 0.3,
-                 edge: float = 0.9, dtype=torch.bfloat16, device=None):
+                 edge: float = 0.9, dtype=torch.bfloat16, device=None,
+                 ids=None):
     """Bake a time-animated bank from 4-D noise at simulation time ``t``
     (a float or a 0-d tensor, used as fp32).  Entry ``e`` samples the
     time coordinate ``t * time_scale + u2f(hash(e, 3e+1, 5e+2,
-    seed+202)) * 16``, so the entries drift out of phase.  On ``device``
-    (None: the card; raises without one)."""
+    seed+202)) * 16``, so the entries drift out of phase.  ``ids``
+    (default: every entry) selects which global entries to bake, so the
+    sharded frame can split the bake over ranks.  On ``device`` (None:
+    the card; raises without one)."""
     device = resolve_device(device)
     t = torch.as_tensor(t, dtype=torch.float32, device=device)
 
@@ -103,4 +108,4 @@ def bake_bank_4d(bank_size: int, size: int, seed: int, t, *,
         return fbm4(torch.cat([xyz, w], dim=-1), seed, octaves=octaves)
 
     return _bake(bank_size, size, seed, noise_of, noise_scale, cutoff, edge,
-                 dtype, device)
+                 dtype, device, ids)

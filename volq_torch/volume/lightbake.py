@@ -105,3 +105,14 @@ def bake_light_volumes(volumes, light_dir, axis: int = 2):
             sig_prev = sig_k
         out[c0:c0 + _BAKE_CHUNK] = taus.permute(inv_perm)
     return out
+
+
+def render_light_volumes(volumes, light, cfg):
+    """The light bank the render reads: ``volumes`` baked toward
+    ``light`` for the lit modes (slab and warp engines with
+    ``light_steps > 0``), else None."""
+    r = cfg.render
+    if r.engine in ("slab", "warp") and r.light_steps > 0:
+        return bake_light_volumes(volumes, light.direction,
+                                  axis=dominant_axis(cfg.light.direction))
+    return None

@@ -254,6 +254,12 @@ def test_cli_profile_writes_a_trace(tmp_path):
     assert rc == 0
     trace = json.loads((prof / "trace.json").read_text())
     assert len(trace["traceEvents"]) > 0
+    spans = {e["name"] for e in trace["traceEvents"]
+             if e.get("cat") == "user_annotation"}
+    assert {"volq.frame", "volq.sim", "volq.sim.emit", "volq.sim.forces",
+            "volq.bake.light", "volq.render", "volq.render.prep",
+            "volq.render.march", "volq.render.composite",
+            "volq.render.finish"} <= spans
 
 
 def test_cli_c1_first_frame_matches_reference(tmp_path):

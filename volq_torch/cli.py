@@ -86,7 +86,8 @@ def _parser() -> argparse.ArgumentParser:
                     "or with --device cpu CPU processes over gloo")
     ap.add_argument("--profile", metavar="DIR",
                     help="write a torch.profiler trace of the frame loop "
-                    "to DIR/trace.json")
+                    "to DIR/trace.json (with the program's volq.* spans) "
+                    "and print its host syncs a frame by span")
     ap.add_argument("--dump-config", action="store_true")
     return ap
 
@@ -206,6 +207,7 @@ def render_frames(args, cfg, device, state, camera, step, lead=True):
     ``state``, ``step(state, camera, n) -> (state, image, stats)``
     advancing ``n`` of them, and return the last state.  Only a
     ``lead`` caller writes the outputs and prints."""
+    from volq_torch.core import trace
     from volq_torch.engine import io
     from volq_torch.scene.state import build_camera
 
@@ -227,6 +229,7 @@ def render_frames(args, cfg, device, state, camera, step, lead=True):
         if device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
         profiler = profile(activities=acts)
+        trace.reset()
         profiler.__enter__()
     # exactly --frames sim frames: the LAST launch shrinks to the
     # remainder when fpl does not divide them
@@ -290,9 +293,13 @@ def render_frames(args, cfg, device, state, camera, step, lead=True):
     if profiler is not None:
         profiler.__exit__(None, None, None)
         os.makedirs(args.profile, exist_ok=True)
-        trace = os.path.join(args.profile, "trace.json")
-        profiler.export_chrome_trace(trace)
-        print(f"profiler trace written to {trace}", file=sys.stderr)
+        path = os.path.join(args.profile, "trace.json")
+        profiler.export_chrome_trace(path)
+        print(f"profiler trace written to {path}", file=sys.stderr)
+        for span, counts in trace.per_frame().items():
+            print(f"a frame in {span or 'no span'}: " + ", ".join(
+                f"{k} {v:g}" for k, v in sorted(counts.items())),
+                file=sys.stderr)
     return state
 
 

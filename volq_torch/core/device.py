@@ -1,8 +1,13 @@
 """Device selection for the port's entry points: the card unless the
-caller asks for the CPU; nothing silently continues on the CPU."""
+caller asks for the CPU; nothing silently continues on the CPU.  Every
+blocking copy between host and card on the frame's path (sim, bakes and
+the warp engine's kernel path) goes through ``h2d`` or ``d2h``, which
+count it (``core/trace``)."""
 from __future__ import annotations
 
 import torch
+
+from volq_torch.core import trace
 
 
 def resolve_device(device=None) -> torch.device:
@@ -26,4 +31,20 @@ def scalar(x, like: torch.Tensor) -> torch.Tensor:
     a Python float: CUDA divides by a host scalar as a multiply by its
     rounded reciprocal, which is not the fp32 quotient the reference
     computes."""
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    return h2d(x, like.device, torch.float32)
+
+
+def h2d(x, device, dtype=None) -> torch.Tensor:
+    """``torch.tensor(x, dtype=dtype, device=device)``: on a card a
+    blocking copy from host memory, counted ``h2d``."""
+    if torch.device(device).type != "cpu":
+        trace.count("h2d")
+    return torch.tensor(x, dtype=dtype, device=device)
+
+
+def d2h(t):
+    """``t.item()``: on a card a blocking read of the value to the host,
+    counted ``d2h``."""
+    if t.device.type != "cpu":
+        trace.count("d2h")
+    return t.item()

@@ -16,6 +16,7 @@ import time
 
 import torch
 
+from volq_torch.core import trace
 from volq_torch.core.device import resolve_device
 from volq_torch.core.types import SceneState
 from volq_torch.render import render_frame
@@ -35,17 +36,19 @@ def _light_volumes(state: SceneState, light, cfg: SceneConfig):
 
 def _frame_body(state: SceneState, camera, light, cfg: SceneConfig,
                 light_volumes=None, slab_banks=None):
-    state = sim_step(state, cfg)
-    if cfg.volume.animated:
-        state = state._replace(volumes=bake_volumes(
-            cfg, state.volumes.device, state.time))
-        light_volumes = slab_banks = None   # stale: the volumes changed
-    if light_volumes is None:
-        light_volumes = _light_volumes(state, light, cfg)
-    image, stats = render_frame(state.particles, state.volumes, camera,
-                                light, cfg, light_volumes=light_volumes,
-                                slab_banks=slab_banks)
-    return state, image, stats
+    with trace.span("volq.frame"):
+        trace.count("frames")
+        state = sim_step(state, cfg)
+        if cfg.volume.animated:
+            state = state._replace(volumes=bake_volumes(
+                cfg, state.volumes.device, state.time))
+            light_volumes = slab_banks = None   # stale: the volumes changed
+        if light_volumes is None:
+            light_volumes = _light_volumes(state, light, cfg)
+        image, stats = render_frame(state.particles, state.volumes, camera,
+                                    light, cfg, light_volumes=light_volumes,
+                                    slab_banks=slab_banks)
+        return state, image, stats
 
 
 def frame(state: SceneState, camera, light, cfg: SceneConfig,

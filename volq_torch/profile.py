@@ -5,25 +5,41 @@
 
 Sets the preset up at full size (``--unfused``: with warp_fused=False;
 ``--perstep``: with light_mode="march"; both are the warp engine's), then
-prints (with the card's name and power limit): the wall milliseconds per
-frame of each phase, timed alone between device synchronizations -- the
-sim step; for an animated preset the three bakes every frame holds (4-D
-volume bank, light bank, slab banks); for the warp engine (c2-c5) the
-render's host-side preparation (geometry, depth sort, kernel inputs),
-each kernel (the unfused pair summed over the frame's megachunks), the
-canvas init and finish; for the exact engine (c1) the binning, the pair
-march and the composite -- and, from a torch.profiler trace of whole
-frames, the device-busy share of the frame and the number of device
-kernels launched per frame.  Needs a CUDA device.
+prints, with the card's name and power limit:
+
+- the wall milliseconds per frame of the frame, the sim step (and of it
+  the spawn draws and the forces), for an animated preset the three bakes
+  every frame holds (4-D volume bank, light bank, slab banks), and the
+  render, each timed alone between device synchronizations;
+- from a torch.profiler trace of ``--frames`` whole frames: the device's
+  busy share, the kernels launched per frame, and for each of the
+  program's spans (``core/trace``) the device's idle milliseconds a frame
+  while it was the innermost open span, and its host syncs a frame: the
+  program's ``h2d`` and ``d2h`` counters beside the trace's host-to-card
+  and card-to-host memcpy events whose runtime call it holds;
+- the same frames again under torch.cuda's sync-debug mode: its warnings
+  against the counters' total.
+
+Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 import subprocess
+import tempfile
 import time
+import warnings
+from collections import defaultdict
 
 import torch
+
+from volq_torch.core import trace
+
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 def _wall_ms(fn, reps: int) -> float:
@@ -36,65 +52,107 @@ def _wall_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def _warp_phases(state, camera, light, cfg, sb, fused):
-    """The warp engine's render phases: name -> callable."""
-    from volq_torch.render import kernel as K
-    from volq_torch.render.warp import (fused_inputs, unfused_inputs,
-                                        _canvas_finish)
-    H = cfg.render.height
-    dev = state.volumes.device
-    inputs = fused_inputs if fused else unfused_inputs
+def span_table(path) -> dict:
+    """Read a chrome trace of whole frames (``volq.frame`` spans) by the
+    program's ``volq.*`` spans.  Over the window from the first frame's
+    start to the last one's end: ``window_s``, ``busy_s`` (union of the
+    device's kernels, copies and fills), ``kernels`` (device kernels), and
+    ``spans`` = {span: {"idle_s", "HtoD", "DtoH"}}: the device's idle gaps
+    put down to the innermost span open at each gap's middle, and the
+    memcpy events between host and card put down to the innermost span
+    open when the host called the copy (by the runtime call's
+    correlation id).  Idle gaps outside every span go under None."""
+    with open(path) as f:
+        ev = json.load(f)["traceEvents"]
+    xs = [e for e in ev if e.get("ph") == "X"]
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in xs
+             if e.get("cat") == "user_annotation"
+             and e["name"].startswith("volq.")]
+    frames = [s for s in spans if s[2] == "volq.frame"]
+    if not frames:
+        raise ValueError(f"{path}: no volq.frame span")
+    w0, w1 = min(a for a, _, _ in frames), max(b for _, b, _ in frames)
 
-    def prep():
-        return inputs(state.particles, camera, light, cfg, sb[0], 0, H,
-                      sb[1])
+    def innermost(t):
+        best = None
+        for a, b, name in spans:
+            if a <= t < b and (best is None or a >= best[0]):
+                best = (a, name)
+        return best[1] if best else None
 
-    canvas = K.canvas_init(cfg, H, dev, fused=fused)
-    if fused:
-        march, comp, _ = prep()
-        Pm, _ = K.warp_march(*march)
-        kernels = {
-            "warp_march kernel": lambda: K.warp_march(*march),
-            "warp_composite kernel":
-                lambda: K.warp_composite(canvas, Pm, *comp),
-        }
-    else:
-        chunks, _ = prep()
-        images = [K.warp_images(*a)[0] for a, _ in chunks]
-        kernels = {
-            f"warp_images kernel x{len(chunks)}":
-                lambda: [K.warp_images(*a) for a, _ in chunks],
-            f"composite_chunk kernel x{len(chunks)}":
-                lambda: [K.composite_chunk(canvas, im, *c)
-                         for im, (_, c) in zip(images, chunks)],
-        }
-    return {
-        f"render host prep ({inputs.__name__})": prep,
-        "canvas_init": lambda: K.canvas_init(cfg, H, dev, fused=fused),
-        **kernels,
-        "canvas finish": lambda: _canvas_finish(canvas[:3], canvas[3], cfg,
-                                                H),
-    }
+    table = defaultdict(lambda: {"idle_s": 0.0, "HtoD": 0, "DtoH": 0})
+    dev = sorted((e["ts"], e["ts"] + e["dur"]) for e in xs
+                 if e.get("cat") in _DEVICE_CATS)
+    busy, cur = 0.0, w0
+    for a, b in dev:
+        a, b = max(a, w0), min(b, w1)
+        if b <= a:
+            continue
+        if a > cur:
+            table[innermost(0.5 * (cur + a))]["idle_s"] += (a - cur) * 1e-6
+        busy += max(b - max(a, cur), 0.0)
+        cur = max(cur, b)
+    if cur < w1:
+        table[innermost(0.5 * (cur + w1))]["idle_s"] += (w1 - cur) * 1e-6
+    called = {e["args"]["correlation"]: e["ts"] for e in xs
+              if e.get("cat") == "cuda_runtime"
+              and "correlation" in e.get("args", {})}
+    for e in xs:
+        if e.get("cat") != "gpu_memcpy":
+            continue
+        kind = next((k for k in ("HtoD", "DtoH") if k in e["name"]), None)
+        t = called.get(e.get("args", {}).get("correlation"))
+        if kind and t is not None and w0 <= t < w1:
+            table[innermost(t)][kind] += 1
+    kernels = sum(1 for e in xs if e.get("cat") == "kernel"
+                  and w0 <= e["ts"] < w1)
+    return dict(window_s=(w1 - w0) * 1e-6, busy_s=busy * 1e-6,
+                kernels=kernels, spans=dict(table))
 
 
-def _exact_phases(state, camera, light, cfg, sb, fused):
-    """The exact engine's render phases (plain tensor code, no kernel of
-    the port's): name -> callable."""
-    from volq_torch.render import exact
-    from volq_torch.render.binning import bin_particles
-    V = state.volumes.shape[-1]
-    bank2d = state.volumes.reshape(state.volumes.shape[0], -1)
-    pairs = bin_particles(state.particles, camera, cfg)
-    C, T = exact._march_pairs(pairs, state.particles, bank2d, V, camera,
-                              light, cfg)
-    return {
-        "bin_particles": lambda: bin_particles(state.particles, camera, cfg),
-        f"march of {pairs.pid.shape[0]} pair slots x {cfg.render.steps} "
-        "steps": lambda: exact._march_pairs(pairs, state.particles, bank2d,
-                                            V, camera, light, cfg),
-        "composite + assemble": lambda: exact.assemble_image(
-            exact.composite_pairs(pairs, C, T, cfg), cfg),
-    }
+def traced_frames(step, state, n: int):
+    """Run ``step(state) -> state`` ``n`` times under torch.profiler (CPU
+    and CUDA) with the program's counters reset.  Returns (state,
+    ``span_table`` of the trace, the counters, wall ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state = step(state)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = trace.counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        table = span_table(path)
+    return state, table, counts, wall_ms
+
+
+def sync_warnings(step, state, n: int):
+    """Run ``step`` ``n`` times under torch.cuda's sync-debug mode "warn",
+    with the profiler on (CPU only) so that the counters count.  Returns
+    (state, warnings of a synchronizing operation, the counters' h2d +
+    d2h total)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    trace.reset()
+    with warnings.catch_warnings(record=True) as got, \
+            profile(activities=[ProfilerActivity.CPU]):
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(n):
+                state = step(state)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    hits = sum(_SYNC_WARNING in str(w.message) for w in got)
+    total = sum(v for (_, k), v in trace.counters().items()
+                if k in ("h2d", "d2h"))
+    return state, hits, total
 
 
 def main(argv=None) -> int:
@@ -109,6 +167,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from volq_torch.engine import loop
+    from volq_torch.render import render_frame
     from volq_torch.render.warp import bake_slab_banks
     from volq_torch.scene.config import PRESETS
     from volq_torch.scene.state import bake_volumes
@@ -138,9 +197,11 @@ def main(argv=None) -> int:
         state, _, _ = loop.frame(state, camera, light, cfg, lv, sb)
     dev = state.volumes.device
     bakes = {}
+    lv_f, sb_f = lv, sb
     if cfg.volume.animated:
         # nothing is cached: every frame bakes all three
         lv_f = loop._light_volumes(state, light, cfg)
+        sb_f = bake_slab_banks(state.volumes, lv_f, cfg)
         bakes = {
             "4-D volume bank bake": lambda: bake_volumes(cfg, dev,
                                                          state.time),
@@ -148,61 +209,53 @@ def main(argv=None) -> int:
             "slab bake (both banks)":
                 lambda: bake_slab_banks(state.volumes, lv_f, cfg),
         }
-        sb = bake_slab_banks(state.volumes, lv_f, cfg)
-    render = (_exact_phases if cfg.render.engine == "exact"
-              else _warp_phases)(state, camera, light, cfg, sb, fused)
+        lv = sb = None      # the frames bake their own
     reps = 10
     p = state.particles
     key = prng.fold_in(state.base_key, state.frame)
     slots = torch.arange(p.age.shape[0], dtype=torch.int32, device=dev)
     phases = {
+        "frame": lambda: loop.frame(state, camera, light, cfg, lv, sb),
         "sim_step": lambda: sim_step(state, cfg),
-        **bakes,
         "  of which spawn_attrs (threefry draws)":
             lambda: spawn_attrs(key, slots, cfg.emitter,
                                 cfg.volume.bank_size),
         "  of which total_force (curl noise)":
             lambda: total_force(p.pos, p.vel, state.time, cfg.forces),
-        **render,
+        **bakes,
+        "render_frame (banks baked)":
+            lambda: render_frame(p, state.volumes, camera, light, cfg,
+                                 light_volumes=lv_f, slab_banks=sb_f),
     }
     phases = {name: _wall_ms(fn, reps) for name, fn in phases.items()}
-    if cfg.volume.animated:
-        lv = sb = None      # the traced frames bake their own
-    frame_ms = _wall_ms(lambda: loop.frame(state, camera, light, cfg, lv,
-                                           sb), reps)
 
-    from torch.profiler import profile, ProfilerActivity
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        st = state
-        for _ in range(args.frames):
-            st, _, _ = loop.frame(st, camera, light, cfg, lv, sb)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_events = [e for e in prof.events()
-                  if getattr(e, "device_type", None) is not None
-                  and "CUDA" in str(e.device_type)]
-    busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
-    top = sorted(prof.key_averages(), key=lambda a: -getattr(
-        a, "self_device_time_total", getattr(a, "self_cuda_time_total", 0)))
+    def step(st):
+        return loop.frame(st, camera, light, cfg, lv, sb)[0]
 
+    state, tab, counts, wall_ms = traced_frames(step, state, args.frames)
+    _, hits, total = sync_warnings(step, state, args.frames)
+
+    n = args.frames
     print(f"[profile] {args.preset}{'' if fused else ' unfused'}"
           f"{' per-step lit' if args.perstep else ''} on {card}")
-    print(f"[profile] frame (sim + render), timed alone: {frame_ms:.3f} ms")
     for name, ms in phases.items():
-        print(f"[profile]   {name}: {ms:.3f} ms")
-    print(f"[profile] traced {args.frames} frames: {wall_ms:.3f} ms wall, "
-          f"device busy {busy_us / 1e3:.3f} ms "
-          f"({100.0 * busy_us / 1e3 / wall_ms:.1f}%), "
-          f"{len(dev_events) / args.frames:.0f} device kernels per frame")
-    for a in top[:8]:
-        t = getattr(a, "self_device_time_total",
-                    getattr(a, "self_cuda_time_total", 0))
-        if t:
-            print(f"[profile]   device {t / 1e3 / args.frames:.3f} ms/frame"
-                  f"  x{a.count // args.frames}  {a.key[:70]}")
+        print(f"[profile] {name}, timed alone: {ms:.3f} ms")
+    print(f"[profile] traced {n} frames: {wall_ms:.3f} ms wall, device busy "
+          f"{tab['busy_s'] * 1e3:.3f} of {tab['window_s'] * 1e3:.3f} ms "
+          f"({100.0 * tab['busy_s'] / tab['window_s']:.1f}%), "
+          f"{tab['kernels'] / n:.0f} device kernels per frame")
+    print("[profile] by span, a frame: device idle ms; host syncs h2d / d2h "
+          "counted, HtoD / DtoH memcpy events in the trace")
+    per = trace.per_frame(counts)
+    for s in sorted(set(tab["spans"]) | set(per), key=str):
+        t = tab["spans"].get(s, {"idle_s": 0.0, "HtoD": 0, "DtoH": 0})
+        c = per.get(s, {})
+        print(f"[profile]   {s or 'outside'}: idle "
+              f"{t['idle_s'] * 1e3 / n:.3f}; h2d {c.get('h2d', 0):g} / d2h "
+              f"{c.get('d2h', 0):g}; HtoD {t['HtoD'] / n:g} / DtoH "
+              f"{t['DtoH'] / n:g}")
+    print(f"[profile] sync-debug mode over {n} frames: {hits} warnings, "
+          f"{total} host syncs counted")
     return 0
 
 

@@ -4,6 +4,7 @@ the Pallas path, ``warp_xla.py``'s plain tensor code on the XLA path),
 "slab" (``slab.py``) and "exact" (``exact.py``), both plain tensor code.
 ``render_frame_tiles`` renders a flat tile range of the two tile engines
 (exact and slab), the unit the sharded frame splits over ranks."""
+from volq_torch.core import trace
 from volq_torch.render.binning import bin_particles, PairList
 from volq_torch.render.exact import (render, render_tiles, composite_pairs,
                                      assemble_image)
@@ -14,14 +15,15 @@ from volq_torch.render.warp import render_warp
 def render_frame(particles, volumes, camera, light, cfg, light_volumes=None,
                  slab_banks=None):
     """Engine-dispatching full-frame render (cfg.render.engine)."""
-    if cfg.render.engine == "warp":
-        return render_warp(particles, volumes, camera, light, cfg,
-                           light_volumes=light_volumes,
-                           slab_banks=slab_banks)
-    if cfg.render.engine == "slab":
-        return render_slab(particles, volumes, camera, light, cfg,
-                           light_volumes=light_volumes)
-    return render(particles, volumes, camera, light, cfg)
+    with trace.span("volq.render"):
+        if cfg.render.engine == "warp":
+            return render_warp(particles, volumes, camera, light, cfg,
+                               light_volumes=light_volumes,
+                               slab_banks=slab_banks)
+        if cfg.render.engine == "slab":
+            return render_slab(particles, volumes, camera, light, cfg,
+                               light_volumes=light_volumes)
+        return render(particles, volumes, camera, light, cfg)
 
 
 def render_frame_tiles(particles, volumes, camera, light, cfg, tile_start=0,

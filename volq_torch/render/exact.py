@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from volq_torch.core import trace
 from volq_torch.core.aabb import ray_aabb
 from volq_torch.core.camera import pixel_rays, view_z
 from volq_torch.core.device import scalar
@@ -158,12 +159,15 @@ def render_tiles(particles: Particles, volumes, camera: Camera,
     Returns ([n_tiles_local, tp, 4] tiles, stats)."""
     V = volumes.shape[-1]
     bank2d = volumes.reshape(volumes.shape[0], -1)
-    pairs = bin_particles(particles, camera, cfg, tile_start=tile_start,
-                          n_tiles_local=n_tiles_local)
-    C_pair, t_pair = _march_pairs(pairs, particles, bank2d, V, camera,
-                                  light, cfg, tile_start=tile_start)
-    tiles = composite_pairs(pairs, C_pair, t_pair, cfg,
-                            n_tiles_local=n_tiles_local)
+    with trace.span("volq.render.prep"):
+        pairs = bin_particles(particles, camera, cfg, tile_start=tile_start,
+                              n_tiles_local=n_tiles_local)
+    with trace.span("volq.render.march"):
+        C_pair, t_pair = _march_pairs(pairs, particles, bank2d, V, camera,
+                                      light, cfg, tile_start=tile_start)
+    with trace.span("volq.render.composite"):
+        tiles = composite_pairs(pairs, C_pair, t_pair, cfg,
+                                n_tiles_local=n_tiles_local)
     return tiles, pairs.stats
 
 
@@ -172,4 +176,5 @@ def render(particles: Particles, volumes, camera: Camera, light: Light,
     """Render one full frame on one device.  Returns ([H, W, 4] fp32,
     stats)."""
     tiles, stats = render_tiles(particles, volumes, camera, light, cfg)
-    return assemble_image(tiles, cfg), stats
+    with trace.span("volq.render.finish"):
+        return assemble_image(tiles, cfg), stats

@@ -44,7 +44,8 @@ import numpy as np
 import torch
 
 from volq_torch.core.camera import make_camera
-from volq_torch.core.device import scalar
+from volq_torch.core import trace
+from volq_torch.core.device import h2d, scalar
 from volq_torch.core.types import Camera, Light, Particles
 from volq_torch.render.common import _fade, _near_fade
 from volq_torch.render import kernel as K
@@ -165,15 +166,13 @@ def bake_march_slabs(volumes, S: int, dtype, vx: int = 0):
     M, V = volumes.shape[0], volumes.shape[-1]
     dev = volumes.device
     consts = _march_z_consts(S, V)
-    z0 = torch.tensor([z for z, _ in consts], device=dev)
-    fz = torch.tensor([f for _, f in consts], dtype=torch.float32,
-                      device=dev)[None, :, None, None]
+    z0 = h2d([z for z, _ in consts], dev)
+    fz = h2d([f for _, f in consts], dev, torch.float32)[None, :, None, None]
     resample = bool(vx) and vx != V
     if resample:
         xc = _slab_x_consts(vx, V)
-        k0 = torch.tensor([k for k, _ in xc], device=dev)
-        fx = torch.tensor([f for _, f in xc], dtype=torch.float32,
-                          device=dev)[None, None, :, None]
+        k0 = h2d([k for k, _ in xc], dev)
+        fx = h2d([f for _, f in xc], dev, torch.float32)[None, None, :, None]
     out = torch.empty((M, S, vx if resample else V, V), dtype=dtype,
                       device=dev)
     for c0 in range(0, M, _SLAB_CHUNK):
@@ -197,21 +196,22 @@ def bake_slab_banks(volumes, light_volumes, cfg: SceneConfig):
     ``light_steps > 0``.  Cache it across frames for static scenes.
     None on the XLA path (``warp_pallas=False``), which streams the
     volumes, as the reference's ``use_slab_banks`` rules."""
-    r = cfg.render
-    if not r.warp_pallas:
-        return None
-    V = volumes.shape[-1]
-    _, ap = _march_perm(cfg)
-    lit = light_volumes is not None and r.light_steps > 0
-    if ap != (0, 1, 2, 3):
-        volumes = volumes.permute(ap)
-        if lit:
-            light_volumes = light_volumes.permute(ap)
-    wdt = torch.float32 if r.warp_fp32 else torch.bfloat16
-    vx = slab_vx_eff(cfg, V)
-    return (bake_march_slabs(volumes, r.steps, wdt, vx),
-            bake_march_slabs(light_volumes, r.steps, wdt, vx) if lit
-            else None)
+    with trace.span("volq.bake.slabs"):
+        r = cfg.render
+        if not r.warp_pallas:
+            return None
+        V = volumes.shape[-1]
+        _, ap = _march_perm(cfg)
+        lit = light_volumes is not None and r.light_steps > 0
+        if ap != (0, 1, 2, 3):
+            volumes = volumes.permute(ap)
+            if lit:
+                light_volumes = light_volumes.permute(ap)
+        wdt = torch.float32 if r.warp_fp32 else torch.bfloat16
+        vx = slab_vx_eff(cfg, V)
+        return (bake_march_slabs(volumes, r.steps, wdt, vx),
+                bake_march_slabs(light_volumes, r.steps, wdt, vx) if lit
+                else None)
 
 
 def upsample_weights(RP: int, RM: int):
@@ -364,9 +364,8 @@ def _grid_geometry(particles: Particles, camera: Camera, cfg: SceneConfig,
                          W, H, proj)
 
     # footprint overflow (conservative corner-projection rect)
-    signs = torch.tensor([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
-                          for sz in (-1, 1)], dtype=torch.float32,
-                         device=pos.device)
+    signs = h2d([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
+                 for sz in (-1, 1)], pos.device, torch.float32)
     corners = pos[:, None, :] + half[:, None, None] * signs[None]
     crel = corners - camera.eye
     cpx, cpy = _project(_dot3(crel, camera.right), _dot3(crel, camera.up),
@@ -450,19 +449,19 @@ def _canvas_finish(C, T, cfg: SceneConfig, h_local: int, cropped=False):
     then columns, one pass per frame.  ``cropped``: the canvas starts at
     the image (the sharded frame crops the padding before its binary
     swap)."""
-    r = cfg.render
-    g = K.canvas_geom(cfg, h_local)
-    p0 = 0 if cropped else g.pad
-    X = torch.cat([C, T[None]], dim=0)[
-        :, p0:p0 + g.hc_img, p0:p0 + g.wc_img].to(torch.float32)
-    if g.cells:
-        X = _cell_upsample(X, h_local, g.ratio, 1)
-        X = _cell_upsample(X, r.width, g.ratio, 2)
-    C, T = X[:3], X[3]
-    bg = torch.tensor(r.background, dtype=torch.float32,
-                      device=C.device)[:, None, None]
-    rgb = C + T[None] * bg
-    return torch.cat([rgb, (1.0 - T)[None]], dim=0).permute(1, 2, 0)
+    with trace.span("volq.render.finish"):
+        r = cfg.render
+        g = K.canvas_geom(cfg, h_local)
+        p0 = 0 if cropped else g.pad
+        X = torch.cat([C, T[None]], dim=0)[
+            :, p0:p0 + g.hc_img, p0:p0 + g.wc_img].to(torch.float32)
+        if g.cells:
+            X = _cell_upsample(X, h_local, g.ratio, 1)
+            X = _cell_upsample(X, r.width, g.ratio, 2)
+        C, T = X[:3], X[3]
+        bg = h2d(r.background, C.device, torch.float32)[:, None, None]
+        rgb = C + T[None] * bg
+        return torch.cat([rgb, (1.0 - T)[None]], dim=0).permute(1, 2, 0)
 
 
 def _depth_order(geom):
@@ -531,33 +530,34 @@ def fused_inputs(particles: Particles, camera: Camera, light: Light,
     per-step, ``cfg.render.light_mode``).
     Returns (march args tuple, composite args tuple -- without the
     canvas --, stats)."""
-    r = cfg.render
-    N = particles.age.shape[0]
-    particles, camera = permute_for_march(particles, camera, cfg)
-    geom, stats = _grid_geometry(particles, camera, cfg, y_start, h_local)
-    po, go = _take(particles, geom, _depth_order(geom))
-    march = _march_inputs(po, go, camera, cfg, bank, lbank)
+    with trace.span("volq.render.prep"):
+        r = cfg.render
+        N = particles.age.shape[0]
+        particles, camera = permute_for_march(particles, camera, cfg)
+        geom, stats = _grid_geometry(particles, camera, cfg, y_start, h_local)
+        po, go = _take(particles, geom, _depth_order(geom))
+        march = _march_inputs(po, go, camera, cfg, bank, lbank)
 
-    RP, RM = r.warp_rect, march_rect(cfg)
-    f32 = torch.float32
-    lit = lbank is not None
-    cg = K.canvas_geom(cfg, h_local)
-    c2m = K.cell_to_march(cg, RM, RP)
-    ayf, axf, oy, ox = _window_corners(go["sy0"], go["sx0"], cg, y_start)
-    box = placement_boxes(ayf, axf, oy, ox, cg, c2m)
-    alb = po.albedo.to(f32)
-    if lit:
-        cc, cc2 = alb * light.color[None], alb * light.ambient[None]
-    else:
-        cc, cc2 = alb * (light.color + light.ambient)[None], None
-    wdt = f32 if r.warp_fp32 else torch.bfloat16
-    pdt = f32 if RM == RP and not cg.cells else wdt
-    cp = K.composite_params(N, RM, cg.Hc, cg.Wx,
-                            c2m if cg.cells else K._ratio_m(RM, RP),
-                            lit, cg.ilv)
-    comp = (ayf, axf, box, cc.contiguous(), go["valid"].to(torch.int32), cp,
-            pdt, None if cc2 is None else cc2.contiguous())
-    return march, comp, stats
+        RP, RM = r.warp_rect, march_rect(cfg)
+        f32 = torch.float32
+        lit = lbank is not None
+        cg = K.canvas_geom(cfg, h_local)
+        c2m = K.cell_to_march(cg, RM, RP)
+        ayf, axf, oy, ox = _window_corners(go["sy0"], go["sx0"], cg, y_start)
+        box = placement_boxes(ayf, axf, oy, ox, cg, c2m)
+        alb = po.albedo.to(f32)
+        if lit:
+            cc, cc2 = alb * light.color[None], alb * light.ambient[None]
+        else:
+            cc, cc2 = alb * (light.color + light.ambient)[None], None
+        wdt = f32 if r.warp_fp32 else torch.bfloat16
+        pdt = f32 if RM == RP and not cg.cells else wdt
+        cp = K.composite_params(N, RM, cg.Hc, cg.Wx,
+                                c2m if cg.cells else K._ratio_m(RM, RP),
+                                lit, cg.ilv)
+        comp = (ayf, axf, box, cc.contiguous(), go["valid"].to(torch.int32),
+                cp, pdt, None if cc2 is None else cc2.contiguous())
+        return march, comp, stats
 
 
 def mega_chunk(cfg: SceneConfig, N: int) -> int:
@@ -582,32 +582,33 @@ def unfused_inputs(particles: Particles, camera: Camera, light: Light,
     depth order, except that a single chunk is marched as stored and
     composited through ``order``, as the reference's one-chunk fast path
     does."""
-    r = cfg.render
-    N = particles.age.shape[0]
-    dev = particles.pos.device
-    particles, camera = permute_for_march(particles, camera, cfg)
-    geom, stats = _grid_geometry(particles, camera, cfg, y_start, h_local)
-    order = _depth_order(geom)
-    C = mega_chunk(cfg, N)
-    RP = r.warp_rect
-    WH, WW, Hc, Wc = K._canvas_dims(cfg, h_local)
-    lightf = torch.cat([light.color, light.ambient]).to(torch.float32)
-    chunks = []
-    for m in range(N // C):
-        if N == C:
-            pm, gm, comp_order = particles, geom, order.to(torch.int32)
-        else:
-            pm, gm = _take(particles, geom, order[m * C:(m + 1) * C])
-            comp_order = None
-        march = _march_inputs(pm, gm, camera, cfg, bank, lbank)
-        oy = torch.clamp(gm["sy0"] - y_start + RP, 0, Hc - WH)
-        ox = torch.clamp(gm["sx0"] + RP, 0, Wc - WW)
-        chunks.append((
-            march[:7] + (pm.albedo.to(torch.float32).contiguous(), lightf,
-                         march[7]),
-            (oy.to(torch.int32), ox.to(torch.int32), comp_order,
-             K.ChunkParams(n=C, RP=RP, Hc=Hc, Wc=Wc))))
-    return chunks, stats
+    with trace.span("volq.render.prep"):
+        r = cfg.render
+        N = particles.age.shape[0]
+        dev = particles.pos.device
+        particles, camera = permute_for_march(particles, camera, cfg)
+        geom, stats = _grid_geometry(particles, camera, cfg, y_start, h_local)
+        order = _depth_order(geom)
+        C = mega_chunk(cfg, N)
+        RP = r.warp_rect
+        WH, WW, Hc, Wc = K._canvas_dims(cfg, h_local)
+        lightf = torch.cat([light.color, light.ambient]).to(torch.float32)
+        chunks = []
+        for m in range(N // C):
+            if N == C:
+                pm, gm, comp_order = particles, geom, order.to(torch.int32)
+            else:
+                pm, gm = _take(particles, geom, order[m * C:(m + 1) * C])
+                comp_order = None
+            march = _march_inputs(pm, gm, camera, cfg, bank, lbank)
+            oy = torch.clamp(gm["sy0"] - y_start + RP, 0, Hc - WH)
+            ox = torch.clamp(gm["sx0"] + RP, 0, Wc - WW)
+            chunks.append((
+                march[:7] + (pm.albedo.to(torch.float32).contiguous(), lightf,
+                             march[7]),
+                (oy.to(torch.int32), ox.to(torch.int32), comp_order,
+                 K.ChunkParams(n=C, RP=RP, Hc=Hc, Wc=Wc))))
+        return chunks, stats
 
 
 def render_warp_canvas(particles: Particles, volumes, camera: Camera,
@@ -658,17 +659,22 @@ def render_warp_canvas(particles: Particles, volumes, camera: Camera,
     if r.warp_fused:
         march, comp, stats = fused_inputs(particles, camera, light, cfg,
                                           bank, y_start, h_local, lbank)
-        Pm, clamp = K.warp_march(*march)
-        canvas = K.canvas_init(cfg, h_local, dev)
-        canvas = K.warp_composite(canvas, Pm, *comp)
+        with trace.span("volq.render.march"):
+            Pm, clamp = K.warp_march(*march)
+        with trace.span("volq.render.composite"):
+            canvas = K.canvas_init(cfg, h_local, dev)
+            canvas = K.warp_composite(canvas, Pm, *comp)
         return canvas, dict(stats, shift_clamped=clamp[0])
     chunks, stats = unfused_inputs(particles, camera, light, cfg, bank,
                                    y_start, h_local, lbank)
-    canvas = K.canvas_init(cfg, h_local, dev, fused=False)
+    with trace.span("volq.render.composite"):
+        canvas = K.canvas_init(cfg, h_local, dev, fused=False)
     shift_clamped = torch.zeros((), dtype=torch.int32, device=dev)
     for img_args, comp_args in chunks:
-        images, clamp = K.warp_images(*img_args)
-        canvas = K.composite_chunk(canvas, images, *comp_args)
+        with trace.span("volq.render.march"):
+            images, clamp = K.warp_images(*img_args)
+        with trace.span("volq.render.composite"):
+            canvas = K.composite_chunk(canvas, images, *comp_args)
         shift_clamped = shift_clamped + clamp[0]
     return canvas, dict(stats, shift_clamped=shift_clamped)
 

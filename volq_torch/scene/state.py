@@ -5,6 +5,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from volq_torch.core import trace
 from volq_torch.core.camera import make_camera, to_device
 from volq_torch.core.device import resolve_device
 from volq_torch.core.types import Particles, SceneState, Camera, Light
@@ -41,14 +42,15 @@ def bake_volumes(cfg: SceneConfig, device=None, t=0.0):
     bank at simulation time ``t``; on ``device`` (None: the card)."""
     device = resolve_device(device)
     v = cfg.volume
-    if v.animated:
-        return bake_bank_4d(v.bank_size, v.size, v.seed, t,
-                            octaves=v.octaves, noise_scale=v.noise_scale,
-                            time_scale=v.time_scale, cutoff=v.cutoff,
-                            edge=v.edge, device=device)
-    return bake_bank(v.bank_size, v.size, v.seed, octaves=v.octaves,
-                     noise_scale=v.noise_scale, cutoff=v.cutoff,
-                     edge=v.edge, device=device)
+    with trace.span("volq.bake.volumes"):
+        if v.animated:
+            return bake_bank_4d(v.bank_size, v.size, v.seed, t,
+                                octaves=v.octaves, noise_scale=v.noise_scale,
+                                time_scale=v.time_scale, cutoff=v.cutoff,
+                                edge=v.edge, device=device)
+        return bake_bank(v.bank_size, v.size, v.seed, octaves=v.octaves,
+                         noise_scale=v.noise_scale, cutoff=v.cutoff,
+                         edge=v.edge, device=device)
 
 
 def _init_particles(cfg: SceneConfig, key) -> Particles:

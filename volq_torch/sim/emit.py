@@ -8,12 +8,13 @@ from __future__ import annotations
 
 import torch
 
+from volq_torch.core.device import h2d
 from volq_torch.scene.config import EmitterConfig
 from volq_torch.sim import prng
 
 
 def _vec(v, like):
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    return h2d(v, like.device, torch.float32)
 
 
 def spawn_attrs(key, slot_ids, ecfg: EmitterConfig, bank_size: int):

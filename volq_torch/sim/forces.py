@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import torch
 
-from volq_torch.core.device import scalar
+from volq_torch.core import trace
+from volq_torch.core.device import h2d, scalar
 from volq_torch.scene.config import ForcesConfig
 from volq_torch.volume.noise import perlin3
 
@@ -21,7 +22,7 @@ _POT_AXES = {0: (2, 1), 1: (2, 0), 2: (1, 0)}
 
 def _potential(q, comp: int, t, cfg: ForcesConfig):
     """Potential ``comp`` at points q [..., 3] and times t [...]."""
-    off = torch.tensor(_POT_OFF[comp], dtype=torch.float32, device=q.device)
+    off = h2d(_POT_OFF[comp], q.device, torch.float32)
     q = q * cfg.curl_freq + off
     z = torch.zeros_like(t)
     q = q + torch.stack([z, 0.1 * t, z], -1)
@@ -36,8 +37,8 @@ def curl_noise(p, t, cfg: ForcesConfig):
     for comp, axes in _POT_AXES.items():
         pts = []
         for axis in axes:
-            e = torch.zeros(3, dtype=torch.float32, device=p.device)
-            e[axis] = h
+            e = h2d([h if i == axis else 0.0 for i in range(3)], p.device,
+                    torch.float32)
             pts += [p + e, p - e]
         v = _potential(torch.stack(pts), comp, t[None].expand(4, -1), cfg)
         for i, axis in enumerate(axes):
@@ -50,9 +51,10 @@ def curl_noise(p, t, cfg: ForcesConfig):
 
 def total_force(pos, vel, t, cfg: ForcesConfig):
     """Per-particle acceleration [N, 3] (unit mass)."""
-    g = torch.tensor(cfg.gravity, dtype=torch.float32, device=pos.device)
-    f = g.expand_as(pos) - cfg.drag * vel
-    if cfg.curl_strength != 0.0:
-        tt = t.to(torch.float32).expand(pos.shape[:-1])
-        f = f + cfg.curl_strength * curl_noise(pos, tt, cfg)
-    return f
+    with trace.span("volq.sim.forces"):
+        g = h2d(cfg.gravity, pos.device, torch.float32)
+        f = g.expand_as(pos) - cfg.drag * vel
+        if cfg.curl_strength != 0.0:
+            tt = t.to(torch.float32).expand(pos.shape[:-1])
+            f = f + cfg.curl_strength * curl_noise(pos, tt, cfg)
+        return f

@@ -19,7 +19,7 @@ import math
 import numpy as np
 import torch
 
-from volq_torch.core.device import resolve_device
+from volq_torch.core.device import h2d, resolve_device
 
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -65,8 +65,7 @@ def fold_in(keys, data):
     """jax.random.fold_in: threefry(key, (0, uint32(data))).  ``data`` is
     an int or a tensor broadcastable with the key batch."""
     if not torch.is_tensor(data):
-        data = torch.tensor(int(data), dtype=torch.int64,
-                            device=keys.device)
+        data = h2d(int(data), keys.device, torch.int64)
     data = data.long() & _MASK
     o1, o2 = threefry2x32(keys[..., 0], keys[..., 1],
                           torch.zeros_like(data), data)
@@ -105,7 +104,7 @@ def uniform(keys, shape=(), minval=0.0, maxval=1.0):
     floats = fb.view(torch.float32) - 1.0
     lo = np.float32(minval)
     span = float(np.float32(maxval) - lo)
-    lo_t = torch.tensor(lo, device=keys.device)
+    lo_t = h2d(lo, keys.device)
     return torch.maximum(lo_t, _fma(floats, span, float(lo)))
 
 

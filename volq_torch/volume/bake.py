@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from volq_torch.core.device import resolve_device
+from volq_torch.core.device import h2d, resolve_device
 
 from volq_torch.volume.noise import fbm3, fbm4, _hash_base, _u2f
 
@@ -25,7 +25,7 @@ def _lattice(size: int, device):
     """Local coords u (x, y, z order) of every voxel center, array axes
     (z, x, y): shape [V, V, V, 3]."""
     ax = torch.arange(size, dtype=torch.float32, device=device) \
-        / torch.tensor(size - 1, dtype=torch.float32, device=device)
+        / h2d(size - 1, device, torch.float32)
     uz, ux, uy = torch.meshgrid(ax, ax, ax, indexing="ij")
     return torch.stack([ux, uy, uz], dim=-1)
 
@@ -50,8 +50,7 @@ def _volume_offsets(ids, seed: int):
 def _shape_density(n, r2, cutoff: float, edge: float = 0.9):
     """fBm in [-1, 1] -> carved density in [0, 1]; ``r2`` = _radius2."""
     d = torch.clamp(0.5 + 0.5 * n - (cutoff + edge * r2), min=0.0) \
-        / torch.tensor(max(1.0 - cutoff, 1e-3), dtype=torch.float32,
-                       device=n.device)
+        / h2d(max(1.0 - cutoff, 1e-3), n.device, torch.float32)
     return torch.clamp(d, max=1.0)
 
 

@@ -19,6 +19,9 @@ from __future__ import annotations
 
 import torch
 
+from volq_torch.core import trace
+from volq_torch.core.device import d2h
+
 # floor of |L_axis|: unreachable through dominant_axis (>= 1/sqrt(3))
 MIN_LAXIS = 0.15
 # bank entries swept at once (bounds the fp32 temporaries)
@@ -46,7 +49,7 @@ def _split(d: torch.Tensor):
     """Shift d -> (integer part as a Python int, fraction as an fp32
     tensor): floor, then the cast, as the reference."""
     i0f = torch.floor(d)
-    return int(i0f), d - i0f
+    return int(d2h(i0f)), d - i0f
 
 
 def _shift1(a, d, axis: int):
@@ -85,7 +88,7 @@ def bake_light_volumes(volumes, light_dir, axis: int = 2):
     dy = _split(light_dir[cj] / ala)
     dl = (1.0 / (V - 1)) / ala
     # from the light-entry face inward: la >= 0 enters at k = V - 1
-    ks = range(V - 1, -1, -1) if bool(la >= 0) else range(V)
+    ks = range(V - 1, -1, -1) if d2h(la >= 0) else range(V)
 
     out = torch.empty((M, V, V, V), dtype=torch.float32,
                       device=volumes.device)
@@ -112,7 +115,8 @@ def render_light_volumes(volumes, light, cfg):
     ``light`` for the lit modes (slab and warp engines with
     ``light_steps > 0``), else None."""
     r = cfg.render
-    if r.engine in ("slab", "warp") and r.light_steps > 0:
-        return bake_light_volumes(volumes, light.direction,
-                                  axis=dominant_axis(cfg.light.direction))
-    return None
+    with trace.span("volq.bake.light"):
+        if r.engine in ("slab", "warp") and r.light_steps > 0:
+            return bake_light_volumes(volumes, light.direction,
+                                      axis=dominant_axis(cfg.light.direction))
+        return None

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from volq_torch.core.device import h2d
+
 _MASK = 0xFFFFFFFF
 
 _K1 = 0x8DA6B343
@@ -150,7 +152,7 @@ def _fbm(noise, p, seed: int, octaves: int, lacunarity: float, gain: float):
         norm += amp
         amp *= gain
         freq *= lacunarity
-    return total / torch.tensor(norm, dtype=torch.float32, device=p.device)
+    return total / h2d(norm, p.device, torch.float32)
 
 
 def fbm3(p, seed: int, *, octaves: int = 4, lacunarity: float = 2.0,

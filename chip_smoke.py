@@ -6,7 +6,7 @@
 Phases (any failure raises, and the script exits non-zero without the
 final result line):
   1. print the card (nvidia-smi name, power limit) and torch/CUDA versions;
-  2. build the seven kernels (every mode of each is in its one source)
+  2. build the eight kernels (every mode of each is in its one source)
      from volq_torch/csrc/ (one nvcc per source, in parallel) and print
      the build seconds;
   2a. the probes: hold both arms of probe_mma (mma_sync, wgmma) against
@@ -118,14 +118,21 @@ final result line):
  11. set up preset c5 at full size (16384 particles, 16 x 64^3 bank baked
      from 4-D noise, 3840x2160, coarse + interleaved cell canvas,
      center-lit); time the three bakes every c5 frame holds (4-D bank,
-     light bank, slab banks); hold A at c5's shapes (every particle of a
+     light bank, slab banks); hold the noise kernel (noise_bake) bit-equal
+     to its plain version on the 4-D bank, and time both and its bound
+     (noise_bake_work: the operations a voxel counted by hand, by pipe;
+     noise_bake_bound: the largest of issue slots, FMA pipe, int32 ALU,
+     conversions and bytes), its SASS's instructions beside it
+     (noise_bake_sass); hold A at c5's shapes (every particle of a
      frame) in bf16 (c5's mode) and fp32, and B in both on the densest
      depth-contiguous run of 4096 particles (its plain version walks the
      16384 particles of a whole frame in most of a minute), then each of
      B's new modes alone on such a run (cell canvas without the
      interleaved association, and the interleaved association on a pixel
-     canvas); drive frames(n=4) from zeroed counters (A 1, B 1 per frame;
-     every frame re-bakes the bank), check the image, time the kernels and
+     canvas); drive frames(n=4) from zeroed counters (A 1, B 1 and the
+     noise kernel 1 per frame: every frame re-bakes the bank; the other
+     configs' drives 0 noise-kernel launches, their banks baked at
+     set-up), check the image, time the kernels and
      the loop: the one timed walk of B's plain version holds B on every
      particle of a c5 frame;
  11b. the sharded frame (dist/) at mesh size 1 on the card, one rank
@@ -141,7 +148,7 @@ final result line):
      (MESH_TIMING: 16 frames a window, 4 a call, one warm-up call, three
      turns), the medians side by side; time_frames(mesh=1) on c1 (the
      entry point, a rank process of its own);
- 12. print the kernels JSON line, nine entries (per warp kernel:
+ 12. print the kernels JSON line, ten entries (per warp kernel:
      launches, error, ms, plain ms and bound on the c4 path, with the c1
      warp, c2, c3, ortho, c4 per-step and c5 paths' numbers under
      "c1_warp", "c2", "c3", "c3_ortho", "c4_ortho", "c4_perstep" and
@@ -162,7 +169,10 @@ final result line):
      and D's redesign (PREV_MS, a prior run's, not this run's);
      "warp_march ortho" and
      "warp_images ortho": A's and C's orthographic mode on the c3 and c4
-     ortho paths; per probe kernel: launches of the probes' run, error,
+     ortho paths; "noise_bake" on c5's bank (launches over the c5
+     drive's "frames", ms, device ms, plain ms, bound and its terms,
+     operations a voxel, its SASS's counts); per
+     probe kernel: launches of the probes' run, error,
      and ms, plain ms, bound at one named point -- for probe_mma and
      probe_stage the new arm's (wgmma, tma) with the old arm's ms beside
      it under the arm's name; probe_stage's bound the largest of bytes,
@@ -198,6 +208,15 @@ import time
 # fp32 rate outside the tensor cores (the kernels are fp32 CUDA-core code)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# per-SM rates a clock on compute capability 9.0 (CUDA C++ Programming
+# Guide, arithmetic instruction throughput), x 132 SMs at the 1980-MHz
+# boost clock: warp instructions issued (4 schedulers x 32 lanes), single
+# fp32 adds and multiplies (an FMA would count two), int32 adds, shifts and
+# logic, int32 multiplies (IMAD, on the FMA pipe beside the fp32 work),
+# type conversions (I2F, F2I, FRND, F2F)
+SM_CLOCKS_PER_S = 132 * 1.98e9
+ISSUE_PER_SM, FP32_PER_SM, INT32_PER_SM, IMUL_PER_SM, CONVERT_PER_SM = \
+    128, 128, 64, 64, 16
 BF16_FLOP_PER_S = 989e12    # dense, tensor cores
 N_FRAMES = 8
 N_FRAMES_UNFUSED = 4
@@ -330,9 +349,11 @@ def ortho_view(cfg, state, camera):
 def _wrappers():
     from volq_torch import probe
     from volq_torch.render import kernel as K
+    from volq_torch.volume import bake as VB
     return {"warp_march": K.warp_march, "warp_composite": K.warp_composite,
             "warp_images": K.warp_images,
             "composite_chunk": K.composite_chunk,
+            "noise_bake": VB.noise_bake,
             "probe_mma": probe.mma_probe, "probe_stage": probe.stage_probe,
             "probe_window": probe.window_probe}
 
@@ -479,6 +500,132 @@ def _bound(by, fl):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
+def noise_bake_work(n: int, size: int, octaves: int, dim: int) -> dict:
+    """Operations by the pipe that executes them, and bytes, of a noise
+    bank of ``n`` entries of ``size``^3 voxels, counted by hand from the
+    plain version's arithmetic (volume/noise.py, volume/bake.py) as uint32
+    and fp32 operations; the int64 masks and widenings that emulate
+    uint32 there are left out.  Per octave and voxel, D = ``dim`` axes,
+    2^D corners:
+      fp32:     per axis p * freq, p - floor, f - 1 and fade's 7: 10D; per
+                corner the D gradients' scale and offset 2D, the dot
+                product's D products and D - 1 sums; 2^D - 1 lerps of 3;
+                the fBm's product and sum 2;
+      convert:  per axis floor and float -> int 2D; per corner the D
+                gradients' int -> float;
+      imul:     per axis the lattice words' two products 2D; per corner D
+                mixes of 2 products;
+      int:      per axis i + 1; per corner D xors of the axis words and
+                the seed word, D - 1 xors of the corner word with a
+                constant, D mixes of 6 (3 shifts, 3 xors).
+    Per voxel besides: fp32 12 (xyz + offset 3, the fBm's divide 1, the
+    carving 8: scale, add, scale, add, subtract, clamp, divide, clamp),
+    convert 1 (the bf16 round).  The lattice, r2 and the entries' offsets
+    and time phases are per V^3 or per entry: left out.  Bytes: the bf16
+    bank stored once; nothing is read."""
+    corners = 2 ** dim
+    per_octave = {
+        "fp32": 10 * dim + corners * (4 * dim - 1) + 3 * (corners - 1) + 2,
+        "convert": 2 * dim + corners * dim,
+        "imul": 2 * dim + corners * 2 * dim,
+        "int": dim + corners * (8 * dim - 1)}
+    per_voxel = {"fp32": 12, "convert": 1, "imul": 0, "int": 0}
+    vox = n * size ** 3
+    ops = {k: (v * octaves + per_voxel[k]) * vox
+           for k, v in per_octave.items()}
+    return dict(ops, bytes=2 * vox)
+
+
+def noise_bake_bound(work: dict) -> dict:
+    """ms by term for ``noise_bake_work``'s counts: each operation an issue
+    slot; fp32 and the int32 multiplies sharing the FMA pipe; int32 adds,
+    shifts and logic; conversions; bytes at HBM's rate."""
+    def ms(ops, per_sm):
+        return ops / (per_sm * SM_CLOCKS_PER_S) * 1e3
+
+    everything = sum(v for k, v in work.items() if k != "bytes")
+    return {"issue": ms(everything, ISSUE_PER_SM),
+            "fma pipe": max(ms(work["fp32"] + work["imul"], FP32_PER_SM),
+                            ms(work["imul"], IMUL_PER_SM)),
+            "int32 alu": ms(work["int"], INT32_PER_SM),
+            "conversions": ms(work["convert"], CONVERT_PER_SM),
+            "bytes": work["bytes"] / HBM_BYTES_PER_S * 1e3}
+
+
+def noise_bake_sass(octaves: int) -> dict:
+    """The 4-D kernel's SASS (``volq_torch.sass``): its instructions, those
+    on its control-flow cycle (the octave loop), and -- when it has one
+    cycle -- the instructions a thread issues, those outside the cycle
+    once and the cycle's ``octaves`` times (code a branch skips counted
+    too)."""
+    from volq_torch import sass
+    recs = sass.analyse("noise_bake", "noise_bake_kernel<4>")
+    assert len(recs) == 1, [r["function"] for r in recs]
+    r = recs[0]
+    cyc = [c["insns"] for c in r["cycles"]]
+    per_thread = r["insns"] - cyc[0] + octaves * cyc[0] \
+        if len(cyc) == 1 else None
+    return {"insns": r["insns"], "cycles": cyc, "per_thread": per_thread,
+            "classes": r["classes"],
+            "registers": r["resources"].get("REG"),
+            "local_bytes": r["resources"].get("LOCAL")}
+
+
+def check_noise_bake(cfg, t, card) -> dict:
+    """The noise kernel on ``cfg``'s animated bank at simulation time
+    ``t`` (a 0-d fp32 card tensor): one launch, bit-equal to the plain
+    version on the card, timed alone (events over launches, and a
+    CUDA-graph replay), the plain version timed, the bound of
+    ``noise_bake_work``, and the issue time of the instructions its SASS
+    holds (``noise_bake_sass``) beside it."""
+    import torch
+    from volq_torch.volume import bake as VB
+    v = cfg.volume
+
+    def kernel():
+        return VB.bake_bank_4d(v.bank_size, v.size, v.seed, t,
+                               octaves=v.octaves, noise_scale=v.noise_scale,
+                               time_scale=v.time_scale, cutoff=v.cutoff,
+                               edge=v.edge)
+
+    def plain():
+        return VB._bake_plain(v.bank_size, v.size, v.seed,
+                              VB._noise_4d(t, v.seed, v.octaves,
+                                           v.time_scale),
+                              v.noise_scale, v.cutoff, v.edge,
+                              torch.bfloat16, t.device)
+
+    n0 = VB.noise_bake.launches
+    got = kernel()
+    launches = VB.noise_bake.launches - n0
+    differ = int((got.view(torch.int16) != plain().view(torch.int16)).sum())
+    assert launches == 1 and differ == 0, \
+        f"noise_bake: {launches} launches, {differ} voxels differ"
+    ms, device_ms = _cuda_ms(kernel, 50), _graph_ms(kernel)
+    plain_ms = _cuda_ms(plain, 3)
+    work = noise_bake_work(v.bank_size, v.size, v.octaves, 4)
+    terms = noise_bake_bound(work)
+    by = max(terms, key=terms.get)
+    vox = v.bank_size * v.size ** 3
+    per_voxel = {k: w / vox for k, w in work.items()}
+    code = noise_bake_sass(v.octaves)
+    sass_ms = None if code["per_thread"] is None else \
+        code["per_thread"] * vox / (ISSUE_PER_SM * SM_CLOCKS_PER_S) * 1e3
+    print(f"[timing] c5 noise_bake {tuple(got.shape)} bf16, bit-equal to "
+          f"the plain version: kernel {ms:.4f} ms (device {device_ms:.4f} "
+          f"ms), plain {plain_ms:.3f} ms, bound {terms[by]:.4f} ms ({by}; "
+          f"terms { {k: round(x, 4) for k, x in terms.items()} }; a voxel "
+          f"{ {k: round(x) for k, x in per_voxel.items()} }); SASS "
+          f"{code['insns']} instructions, cycles {code['cycles']}, "
+          f"{code['per_thread']} issued a thread -> {sass_ms} ms at one "
+          f"a slot, {code['registers']} registers, local "
+          f"{code['local_bytes']} B  [{card}]")
+    return {"max_abs_err": 0.0, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": terms[by], "bound_by": by,
+            "bound_terms_ms": terms, "ops_per_voxel": per_voxel,
+            "sass": code, "sass_issue_ms": sass_ms}
+
+
 def _march_work(args):
     """(bytes in, flops) of the march + fan + exp part of kernels A and C
     on these inputs: the slab stacks of the distinct volumes the valid
@@ -620,8 +767,10 @@ def check_image(tag, image, stats, cfg):
 
 
 def drive(tag, state, camera, light, cfg, lv, sb, n, expect):
-    """frames(n) from zeroed launch counters; the counts must equal
-    ``expect`` (per frame) times n.  Returns (state, image, counts)."""
+    """frames(n) from zeroed launch counters; the counts of the warp
+    kernels and of the noise kernel must equal ``expect`` (per frame; 0
+    where absent: a static bank is baked at set-up) times n.  Returns
+    (state, image, counts)."""
     import torch
     from volq_torch.engine import loop
     _zero_counts()
@@ -633,7 +782,7 @@ def drive(tag, state, camera, light, cfg, lv, sb, n, expect):
     print(f"[main] {tag} frames(n={n}) in {dt:.3f} s, launches {counts}, "
           f"stats of the last frame "
           f"{ {k: int(v[-1]) for k, v in stats.items()} }")
-    for name in NAMES:
+    for name in NAMES + ("noise_bake",):
         want = expect.get(name, 0) * n
         assert counts[name] == want, \
             f"{tag}: {name} launched {counts[name]} times in {n} frames, " \
@@ -1799,6 +1948,7 @@ def main() -> int:
              lambda: bake_slab_banks(st1.volumes, lv, cfg))):
         print(f"[bake] c5 {what}: {_wall_ms(fn, 3):.3f} ms per frame  "
               f"[{card}]")
+    noise_rec = check_noise_bake(cfg, st1.time, card)
     check_fused("c5", st1, camera, light, cfg, lv, errs, run=RUN)
     # B's new modes each alone, on a run of particles: the cell canvas
     # without the interleaved association, and that association on a
@@ -1812,8 +1962,9 @@ def main() -> int:
         check_composite(tag, c, Pm, comp, errs, run=RUN)
     del st1, lv, bank, lbank, march, comp, Pm
     torch.cuda.empty_cache()
+    # the 4-D bank is re-baked every frame: one noise-kernel launch each
     state, _, c5_counts = drive("c5", state, camera, light, cfg, None, None,
-                                N_FRAMES_C5, fused)
+                                N_FRAMES_C5, dict(fused, noise_bake=1))
     c5_times = time_fused("c5", state, camera, light, cfg, None, card, errs,
                           sweep=True)
     time_loop("c5", (state, camera, light, None, None), cfg, card,
@@ -1866,6 +2017,13 @@ def main() -> int:
             "source": sources[name], "replaces": replaces[name],
             "launches": counts[name], "max_abs_err": oerrs[name],
             **times[name], "library_ms": None, "path": path})
+    # the noise bank's bake: no TPU kernel (XLA fused it)
+    kernels.append({"name": "noise_bake", "route": "cuda",
+                    "source": "volq_torch/csrc/noise_bake.cu",
+                    "replaces": None,
+                    "launches": c5_counts["noise_bake"],
+                    "frames": N_FRAMES_C5, **noise_rec, "library_ms": None,
+                    "path": "c5"})
     for name in PROBES:
         k = {"name": name, "route": "cuda", "source": sources[name],
              "replaces": replaces[name], "launches": probe_counts[name],

@@ -32,7 +32,10 @@ probes: both arms of probe_mma (mma_sync, wgmma) on shapes that exercise
 every wgmma plan within 1e-4 of max |out| of the fp64 plain sum, both arms
 of probe_stage (cp_async, tma at ring depths 2, 4, 8) and probe_window
 (cp_async at align 128 / 16 / 8 / 4, tma also at 2 / 1; the reference's
-windows and heavy-overlap cases) bit-equal.
+windows and heavy-overlap cases) bit-equal.  The noise kernel
+(``noise_bake``): c5's animated bank at four times and seeds (a large
+and a negative time among them), ``ids`` subsets, and a c3-like static
+bank, each bit-equal to the plain version on the card.
 """
 import dataclasses
 
@@ -45,7 +48,9 @@ from volq_torch.render import kernel as K
 from volq_torch.render.warp import fused_inputs, unfused_inputs
 from volq_torch.scene.config import (SceneConfig, VolumeConfig,
                                      EmitterConfig, CameraConfig,
-                                     RenderConfig)
+                                     RenderConfig, c3 as c3_preset,
+                                     c5 as c5_preset)
+from volq_torch.volume import bake as VB
 
 pytestmark = pytest.mark.gpu
 
@@ -1000,3 +1005,84 @@ def test_chunk_fill_matches_plain():
         for t in range(counts.numel()):
             a, b = int(offs[t]), int(offs[t + 1])
             assert torch.equal(slots[t, :b - a].sort().values, lists[a:b]), t
+
+
+def _bits(bank):
+    return bank.view(torch.int16)
+
+
+def _bake_4d(v, t, seed, ids=None, plain=False):
+    """c5-like bank ``v`` at time ``t``: the kernel's, or (``plain``) the
+    plain version's on the card."""
+    tt = torch.tensor(t, dtype=torch.float32, device="cuda")
+    if plain:
+        return VB._bake_plain(v.bank_size, v.size, seed,
+                              VB._noise_4d(tt, seed, v.octaves,
+                                           v.time_scale),
+                              v.noise_scale, v.cutoff, v.edge,
+                              torch.bfloat16, tt.device, ids)
+    return VB.bake_bank_4d(v.bank_size, v.size, seed, tt, octaves=v.octaves,
+                           noise_scale=v.noise_scale,
+                           time_scale=v.time_scale, cutoff=v.cutoff,
+                           edge=v.edge, ids=ids)
+
+
+@pytest.mark.parametrize("t, seed", [(0.0, 5), (0.37, 2 ** 31 + 101),
+                                     (1234.5, 5), (-37.25, 2 ** 32 + 7)],
+                         ids=["t0", "seed-2^31", "t-large", "t-negative"])
+def test_noise_bake_4d_equals_plain_at_c5_shapes(t, seed):
+    """The animated bank of c5 (16 x 64^3, 3 octaves, its noise_scale,
+    cutoff and edge): one launch, bit-equal to the plain version; the
+    entries' offsets put part of the lattice below 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    v = c5_preset().volume
+    assert float(VB._volume_offsets(torch.arange(v.bank_size), seed)
+                 .min()) < -1.0
+    n0 = VB.noise_bake.launches
+    got = _bake_4d(v, t, seed)
+    assert VB.noise_bake.launches == n0 + 1
+    assert got.shape == (16, 64, 64, 64) and got.dtype == torch.bfloat16
+    assert torch.equal(_bits(got), _bits(_bake_4d(v, t, seed, plain=True)))
+    assert float(got.float().max()) > 0.1
+
+
+def test_noise_bake_4d_ids_subsets_equal_plain():
+    """``ids`` as the sharded frame passes them (a CPU arange per rank),
+    and out of order: the plain version's entries, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    v = c5_preset().volume
+    whole = _bake_4d(v, 2.5, 77)
+    for ids in (torch.arange(8, 16), torch.tensor([5, 0, 13, 7])):
+        got = _bake_4d(v, 2.5, 77, ids=ids)
+        assert torch.equal(_bits(got), _bits(_bake_4d(v, 2.5, 77, ids=ids,
+                                                      plain=True)))
+        assert torch.equal(_bits(got), _bits(whole[ids.cuda()]))
+
+
+def test_noise_bake_3d_equals_plain_at_a_c3_like_shape():
+    """The static bank of 3-D noise (c3's octaves, noise_scale, cutoff and
+    edge; 6 entries of 32^3): one launch, bit-equal to the plain version;
+    the plain version's fp32 bank on the card rounds to the same bf16
+    bank, and the wrapper refuses an fp32 bank on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    v = c3_preset().volume
+    kw = dict(octaves=v.octaves, noise_scale=v.noise_scale,
+              cutoff=v.cutoff, edge=v.edge)
+    n0 = VB.noise_bake.launches
+    got = VB.bake_bank(6, 32, v.seed, **kw)
+    assert VB.noise_bake.launches == n0 + 1
+    ref = VB._bake_plain(6, 32, v.seed, VB._noise_3d(v.seed, v.octaves),
+                         v.noise_scale, v.cutoff, v.edge, torch.bfloat16,
+                         got.device)
+    assert torch.equal(_bits(got), _bits(ref))
+    assert float(got.float().max()) > 0.1
+    f32 = VB._bake_plain(6, 32, v.seed, VB._noise_3d(v.seed, v.octaves),
+                         v.noise_scale, v.cutoff, v.edge, torch.float32,
+                         got.device)
+    assert torch.equal(_bits(got), _bits(f32.to(torch.bfloat16)))
+    with pytest.raises(ValueError, match="bf16"):
+        VB.bake_bank(6, 32, v.seed, dtype=torch.float32, **kw)
+    assert VB.noise_bake.launches == n0 + 1

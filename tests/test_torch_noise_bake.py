@@ -8,6 +8,9 @@ into a reciprocal multiply; the port rounds every operation as written
 (the reference's own op-by-op semantics), so a few voxels may differ by
 one bf16 ulp (ROADMAP Queue 3).
 """
+import hashlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -106,3 +109,114 @@ def test_bake_bank_4d_ids_select_entries(monkeypatch):
     assert np.array_equal(ref, full[ids])
     diff = np.abs(ref - got.float().numpy())
     assert ref.max() > 0.05 and (diff <= _bf16_ulp(ref)).all()
+
+
+# sha256 (first 16 hex digits) of the CPU banks' bf16 bits before the
+# noise kernel came in: the plain path's output may not move
+_PLAIN_BANKS = {
+    "4d": (lambda: tb.bake_bank_4d(4, 12, 2 ** 31 + 5, 0.75, octaves=3,
+                                   noise_scale=4.5, ids=[3, 0, 6, 1],
+                                   device="cpu"), "0a48bd0a6eb94c5f"),
+    "3d": (lambda: tb.bake_bank(3, 12, 9, octaves=4, noise_scale=4.0,
+                                cutoff=0.25, device="cpu"),
+           "270de7ab2b59bda3"),
+}
+
+
+@pytest.mark.parametrize("bank", sorted(_PLAIN_BANKS))
+def test_cpu_bakes_take_the_plain_path_unchanged(bank, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the noise kernel called on the CPU")
+
+    monkeypatch.setattr(tb, "noise_bake", refuse)
+    bake, digest = _PLAIN_BANKS[bank]
+    got = bake()
+    assert got.dtype == torch.bfloat16
+    assert hashlib.sha256(got.view(torch.int16).numpy().tobytes()) \
+        .hexdigest()[:16] == digest
+
+
+@pytest.mark.parametrize("animated", [True, False], ids=["4d", "3d"])
+def test_plain_bake_counts_noise_torch(animated):
+    from torch.profiler import ProfilerActivity, profile
+    from volq_torch.core import trace
+    from volq_torch.scene.config import SceneConfig, VolumeConfig
+    from volq_torch.scene.state import bake_volumes
+    cfg = SceneConfig(volume=VolumeConfig(size=8, bank_size=2, octaves=1,
+                                          animated=animated))
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        bake_volumes(cfg, "cpu", 0.5)
+    assert trace.counters() == {("volq.bake.volumes", "noise_torch"): 1}
+    trace.reset()
+
+
+def test_noise_kernel_is_built_with_the_others():
+    from volq_torch import _build
+    assert "noise_bake" in _build.SOURCES
+    src = (_build.CSRC / "noise_bake.cu").read_text()
+    body = re.search(r"struct NoiseParams \{(.*?)\};", src, re.S).group(1)
+    names = []
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        names += [re.sub(r"\[.*", "", w).split()[-1]
+                  for w in decl.strip().split(",") if w.strip()]
+    assert names == [f[0] for f in tb.NoiseParams._fields_]
+    assert tb._MAX_OCTAVES == int(re.search(
+        r"kMaxOctaves = (\d+);", src).group(1))
+
+
+_P = tb.noise_params(4, 8, 3, 3, 4.0, 0.3, 0.9, 0.5)
+
+
+@pytest.mark.parametrize("case, error, match", [
+    (dict(ids=torch.arange(4)), ValueError, "CUDA device"),
+    (dict(ids=torch.arange(4, dtype=torch.int32)), TypeError, "dtype"),
+    (dict(ids=torch.arange(8)[::2]), ValueError, "contiguous"),
+    (dict(ids=torch.arange(3)), ValueError, "shape"),
+    (dict(t=torch.tensor(0.5, dtype=torch.float64)), TypeError, "dtype"),
+    (dict(t=torch.tensor(0.5)), ValueError, "CUDA device"),
+    (dict(), ValueError, "CUDA device"),
+], ids=["ids-cpu", "ids-int32", "ids-strided", "ids-short", "t-fp64",
+        "t-cpu", "no-card"])
+def test_noise_bake_refuses_before_loading(case, error, match, monkeypatch):
+    def refuse(*args):
+        raise AssertionError("loaded a kernel for refused inputs")
+
+    monkeypatch.setattr(tb, "function", refuse)
+    with pytest.raises(error, match=match):
+        tb.noise_bake(_P, "cpu", **case)
+
+
+@pytest.mark.parametrize("bake", [
+    lambda: tb.bake_bank(2, 8, 5, octaves=1, dtype=torch.float32),
+    lambda: tb.bake_bank_4d(2, 8, 5, 0.5, octaves=1, dtype=torch.float32),
+    lambda: tb.bake_bank_4d(2, 8, 5, 0.5, octaves=1, dtype=torch.float16,
+                            ids=[1]),
+], ids=["3d-fp32", "4d-fp32", "4d-fp16-ids"])
+def test_card_bank_of_another_dtype_is_refused(bake, monkeypatch):
+    """On the card a bank is the kernel's bf16: another dtype raises
+    before anything is made on the card or loaded, and never falls back to
+    the plain version."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("reached a bake for a refused dtype")
+
+    monkeypatch.setattr(tb, "resolve_device",
+                        lambda device=None: torch.device("cuda"))
+    for name in ("function", "noise_bake", "_bake_plain"):
+        monkeypatch.setattr(tb, name, refuse)
+    with pytest.raises(ValueError, match="bf16"):
+        bake()
+
+
+def test_noise_params_round_as_torch_does():
+    p = tb.noise_params(2, 33, -4, 3, 4.1, 0.35, 0.9, 0.37)
+    f32 = lambda x: float(torch.tensor(x, dtype=torch.float32))  # noqa: E731
+    assert (p.denom, p.noise_scale, p.time_scale, p.cutoff, p.span) == (
+        32.0, f32(4.1), f32(0.37), f32(0.35), f32(1.0 - 0.35))
+    assert (list(p.amp[:3]), list(p.freq[:3]), p.norm) == (
+        [1.0, 0.5, 0.25], [1.0, 2.0, 4.0], 1.75)
+    assert list(p.seed[:3]) == [tn._seed_word(-4 + o) for o in range(3)]
+    assert (p.off_seed, p.time_seed) == (tn._seed_word(97),
+                                         tn._seed_word(198))
+    with pytest.raises(ValueError):
+        tb.noise_params(2, 8, 0, tb._MAX_OCTAVES + 1, 4.0, 0.3, 0.9)

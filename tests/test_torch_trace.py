@@ -8,7 +8,8 @@ counters key by the innermost span, ``core/device``'s ``h2d`` / ``d2h``
 count off the CPU only, and the frames are bit-identical with and without
 the profiler.  Imports neither JAX nor volq; the ``gpu`` case (each span's
 counted host syncs equal to the trace's memcpy events under it, and to
-the sync-debug warnings) runs on the card:
+the sync-debug warnings; a frame's bank baked by the noise kernel, once)
+runs on the card:
 
     python -m pytest --noconftest -m gpu tests/test_torch_trace.py -q
 """
@@ -111,8 +112,10 @@ def test_spans_nest_in_the_profiler_trace(tmp_path):
     spans = _spans(prof, tmp_path)
     assert {s[2]: _parent(s, spans) for s in spans} == PARENT
     assert sorted(s[2] for s in spans) == sorted(PARENT)    # once each
-    # on the CPU nothing crosses to a card: the frame alone is counted
-    assert trace.counters() == {("volq.frame", "frames"): 1}
+    # on the CPU nothing crosses to a card: the frame and the volume
+    # bank's plain bake alone are counted
+    assert trace.counters() == {("volq.frame", "frames"): 1,
+                                ("volq.bake.volumes", "noise_torch"): 1}
     assert trace._stack == []
 
 
@@ -198,3 +201,17 @@ def test_host_syncs_equal_the_trace_and_the_sync_warnings_on_card():
     assert counts[("volq.frame", "frames")] == n
     _, hits, total = sync_warnings(step, state, n)
     assert hits == total == sum(counted.values())
+
+
+@pytest.mark.gpu
+def test_a_card_frame_bakes_its_bank_with_the_noise_kernel():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the noise kernel has no CPU mode)")
+    cfg = _tiny_c5()
+    state, camera, light = loop.setup(cfg)
+    state = loop.frame(state, camera, light, cfg)[0]
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        state = loop.frame(state, camera, light, cfg)[0]
+    assert trace.per_frame()["volq.bake.volumes"] == {"noise_kernel": 1.0}
+    assert not any(k == "noise_torch" for _, k in trace.counters())

@@ -6,8 +6,8 @@ root, named by the content hash of the source and of every file under
 ``csrc/`` it includes (an edited source or header rebuilds), and loaded
 with ``ctypes``.  ``build_all`` starts one ``nvcc`` per
 source at once.  Nothing here runs at import time.  ``check_tensor``,
-``ptr`` and ``stream`` are what every wrapper needs to hand tensors to a
-C function.
+``function``, ``ptr`` and ``stream`` are what every wrapper needs to hand
+tensors to a C function.
 """
 from __future__ import annotations
 
@@ -26,7 +26,8 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "volq_torch"
 SOURCES = ("warp_march", "warp_composite", "warp_images",
-           "composite_chunk", "probe_mma", "probe_stage", "probe_window")
+           "composite_chunk", "noise_bake", "probe_mma", "probe_stage",
+           "probe_window")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -108,6 +109,16 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _libs[name] = lib
     return lib
+
+
+def function(lib: str, name: str, argtypes):
+    """C function ``name`` of kernel library ``lib`` (built at first
+    use), returning an int error code, with its argument types set."""
+    fn = getattr(load(lib), name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return fn
 
 
 def check_tensor(t: torch.Tensor, name: str, dtypes, shape=None,

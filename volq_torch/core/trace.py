@@ -26,7 +26,10 @@ clears them.  Spans are named ``volq.<layer>[.<part>]``:
       volq.render.finish      the canvas over the background
 
 The counters ``h2d`` and ``d2h`` count the blocking copies between host
-and card (``core/device.h2d`` and ``d2h``).
+and card (``core/device.h2d`` and ``d2h``); ``noise_kernel`` and
+``noise_torch`` count the bakes of a noise bank by its CUDA kernel and by
+its plain version (``volume/bake.py``), so a frame shows which path its
+bank took.
 """
 from __future__ import annotations
 

@@ -16,7 +16,9 @@ prints, with the card's name and power limit:
   program's spans (``core/trace``) the device's idle milliseconds a frame
   while it was the innermost open span, and its host syncs a frame: the
   program's ``h2d`` and ``d2h`` counters beside the trace's host-to-card
-  and card-to-host memcpy events whose runtime call it holds;
+  and card-to-host memcpy events whose runtime call it holds, and its
+  other counters a frame (``noise_kernel`` / ``noise_torch``: the path
+  the volume bank's bake took);
 - the same frames again under torch.cuda's sync-debug mode: its warnings
   against the counters' total.
 
@@ -250,10 +252,12 @@ def main(argv=None) -> int:
     for s in sorted(set(tab["spans"]) | set(per), key=str):
         t = tab["spans"].get(s, {"idle_s": 0.0, "HtoD": 0, "DtoH": 0})
         c = per.get(s, {})
+        other = "".join(f"; {k} {v:g}" for k, v in sorted(c.items())
+                        if k not in ("h2d", "d2h"))
         print(f"[profile]   {s or 'outside'}: idle "
               f"{t['idle_s'] * 1e3 / n:.3f}; h2d {c.get('h2d', 0):g} / d2h "
               f"{c.get('d2h', 0):g}; HtoD {t['HtoD'] / n:g} / DtoH "
-              f"{t['DtoH'] / n:g}")
+              f"{t['DtoH'] / n:g}{other}")
     print(f"[profile] sync-debug mode over {n} frames: {hits} warnings, "
           f"{total} host syncs counted")
     return 0

@@ -59,7 +59,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from volq_torch._build import (check_tensor as _check, ptr as _ptr,
+from volq_torch._build import (check_tensor as _check,
+                               function as _kernel_fn, ptr as _ptr,
                                stream as _stream)
 from volq_torch.scene.config import SceneConfig
 
@@ -630,17 +631,6 @@ def _images_plan(key: bytes, itemsize: int, aligned: bool) -> MarchPlan:
 def _key(s: ctypes.Structure) -> bytes:
     """A parameter struct's bytes, as a cache key."""
     return bytes(s)
-
-
-def _kernel_fn(lib: str, name: str, argtypes):
-    """C function ``name`` of kernel library ``lib`` (built at first
-    use), with its argument types set."""
-    from volq_torch._build import load
-    fn = getattr(load(lib), name)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    return fn
 
 
 def _check_march(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams,

@@ -144,14 +144,25 @@ def perlin4(p, seed: int):
     return lerp(n0, n1, wx)
 
 
-def _fbm(noise, p, seed: int, octaves: int, lacunarity: float, gain: float):
-    total = torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device)
+def _octaves(octaves: int, lacunarity: float = 2.0, gain: float = 0.5):
+    """The fBm's octave amplitudes and frequencies and their amplitudes'
+    sum, accumulated in Python floats: (amps, freqs, norm)."""
+    amps, freqs = [], []
     amp, freq, norm = 1.0, 1.0, 0.0
-    for o in range(octaves):
-        total = total + amp * noise(p * freq, seed + o)
+    for _ in range(octaves):
+        amps.append(amp)
+        freqs.append(freq)
         norm += amp
         amp *= gain
         freq *= lacunarity
+    return amps, freqs, norm
+
+
+def _fbm(noise, p, seed: int, octaves: int, lacunarity: float, gain: float):
+    total = torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device)
+    amps, freqs, norm = _octaves(octaves, lacunarity, gain)
+    for o, (amp, freq) in enumerate(zip(amps, freqs)):
+        total = total + amp * noise(p * freq, seed + o)
     return total / h2d(norm, p.device, torch.float32)
 
 

@@ -6,7 +6,7 @@
 Phases (any failure raises, and the script exits non-zero without the
 final result line):
   1. print the card (nvidia-smi name, power limit) and torch/CUDA versions;
-  2. build the eight kernels (every mode of each is in its one source)
+  2. build the nine kernel sources (every mode of each is in its one source)
      from volq_torch/csrc/ (one nvcc per source, in parallel) and print
      the build seconds;
   2a. the probes: hold both arms of probe_mma (mma_sync, wgmma) against
@@ -123,7 +123,12 @@ final result line):
      (noise_bake_work: the operations a voxel counted by hand, by pipe;
      noise_bake_bound: the largest of issue slots, FMA pipe, int32 ALU,
      conversions and bytes), its SASS's instructions beside it
-     (noise_bake_sass); hold A at c5's shapes (every particle of a
+     (noise_bake_sass); hold the sim's kernels (sim_step.cu) bit-equal to
+     the plain sim step over 4 steps of c5's particles aged so that slots
+     die and respawn (check_sim_kernel: 3 launches a step), time them
+     (events, a CUDA-graph replay, the host clock) and the plain step,
+     and their bound (sim_step_work, sim_step_bound); hold A at c5's
+     shapes (every particle of a
      frame) in bf16 (c5's mode) and fp32, and B in both on the densest
      depth-contiguous run of 4096 particles (its plain version walks the
      16384 particles of a whole frame in most of a minute), then each of
@@ -132,7 +137,8 @@ final result line):
      canvas); drive frames(n=4) from zeroed counters (A 1, B 1 and the
      noise kernel 1 per frame: every frame re-bakes the bank; the other
      configs' drives 0 noise-kernel launches, their banks baked at
-     set-up), check the image, time the kernels and
+     set-up; every drive 3 sim-kernel launches a frame), check the image,
+     time the kernels and
      the loop: the one timed walk of B's plain version holds B on every
      particle of a c5 frame;
  11b. the sharded frame (dist/) at mesh size 1 on the card, one rank
@@ -148,7 +154,7 @@ final result line):
      (MESH_TIMING: 16 frames a window, 4 a call, one warm-up call, three
      turns), the medians side by side; time_frames(mesh=1) on c1 (the
      entry point, a rank process of its own);
- 12. print the kernels JSON line, ten entries (per warp kernel:
+ 12. print the kernels JSON line, eleven entries (per warp kernel:
      launches, error, ms, plain ms and bound on the c4 path, with the c1
      warp, c2, c3, ortho, c4 per-step and c5 paths' numbers under
      "c1_warp", "c2", "c3", "c3_ortho", "c4_ortho", "c4_perstep" and
@@ -171,7 +177,9 @@ final result line):
      "warp_images ortho": A's and C's orthographic mode on the c3 and c4
      ortho paths; "noise_bake" on c5's bank (launches over the c5
      drive's "frames", ms, device ms, plain ms, bound and its terms,
-     operations a voxel, its SASS's counts); per
+     operations a voxel, its SASS's counts); "sim_step" on c5's
+     particles (launches over the c5 drive's "frames", ms, device ms,
+     host-clock ms, plain ms, bound and its terms, the work counted); per
      probe kernel: launches of the probes' run, error,
      and ms, plain ms, bound at one named point -- for probe_mma and
      probe_stage the new arm's (wgmma, tma) with the old arm's ms beside
@@ -221,6 +229,10 @@ BF16_FLOP_PER_S = 989e12    # dense, tensor cores
 N_FRAMES = 8
 N_FRAMES_UNFUSED = 4
 N_FRAMES_C5 = 4
+# launches of the sim's kernels a step (csrc/sim_step.cu)
+SIM_LAUNCHES = 3
+# fp64 operations an SM a clock on compute capability 9.0 (the same guide)
+FP64_PER_SM = 64
 # depth-contiguous run of particles B's modes are each held on alone
 RUN = 4096
 # fused vs unfused image of one c4 state: BASELINE.md's on-device budget of
@@ -349,11 +361,12 @@ def ortho_view(cfg, state, camera):
 def _wrappers():
     from volq_torch import probe
     from volq_torch.render import kernel as K
+    from volq_torch.sim import kernel as SK
     from volq_torch.volume import bake as VB
     return {"warp_march": K.warp_march, "warp_composite": K.warp_composite,
             "warp_images": K.warp_images,
             "composite_chunk": K.composite_chunk,
-            "noise_bake": VB.noise_bake,
+            "noise_bake": VB.noise_bake, "sim_step": SK.sim_step_kernel,
             "probe_mma": probe.mma_probe, "probe_stage": probe.stage_probe,
             "probe_window": probe.window_probe}
 
@@ -626,6 +639,124 @@ def check_noise_bake(cfg, t, card) -> dict:
             "sass": code, "sass_issue_ms": sass_ms}
 
 
+def sim_step_work(n: int, alive: int, spawned: int) -> dict:
+    """Operations by the pipe that executes them, and bytes, of one sim
+    step of ``n`` slots, ``alive`` of them advected and ``spawned``
+    drawing fresh attributes, counted by hand from the plain version's
+    arithmetic (sim/prng.py, emit.py, forces.py, volume/noise.py) as
+    uint32, fp32 and fp64 operations; the int64 masks and widenings that
+    emulate uint32 there are left out.
+      every slot: the age's add and the death test (fp32 2) in each of
+                the three kernels; the emission rank's add (int 1);
+      an alive slot: 12 perlin3 evaluations (2 points x 2 axes x 3
+                potentials), each: per axis the potential's scale,
+                offset and time add, p - floor, f - 1 and fade's 7 (fp32
+                12), floor and float -> int (convert 2), the lattice
+                words' two products (imul 2), i + 1 (int 1); per corner
+                (8) the 3 gradients' scale and offset and the dot
+                product's 3 products and 2 sums (fp32 11), 3 int -> float
+                (convert 3), 3 mixes of 2 products (imul 6), 3 xors of the
+                axis words and the seed word, 2 xors with a constant and 3
+                mixes of 6 (int 23); 7 lerps of 3 (fp32 21); besides the
+                points' 36 adds, 6 differences and 6 divisions, the time
+                term, the curl's 3 differences, drag and curl's 12,
+                the advection's 12 (fp32 76);
+      a spawning slot: 25 threefry blocks (the frame's and the slot's
+                fold_in, split(7), 12 draws, randint's split(2) and 2
+                draws), each 2 xors of the key schedule, 2 adds, 20 rounds
+                of add, rotate (2 shifts, or) and xor, 5 key injections of
+                3 adds (int 119), and 14 xors of the two words; 12
+                uniforms of shift and or (int 2), the - 1 and the floor
+                (fp32 2), to double and back (convert 2) and the
+                multiply-add in double (fp64 2); 6 erfinvs of x * x,
+                negations, log1pf (about 12), the branch's sub or sqrtf,
+                the product (fp32 18) and 8 steps in double (fp64 16,
+                convert 16); the direction's norm, clamp, 3 divisions,
+                powf (about 12), the position's, velocity's and albedo's
+                products and sums (fp32 40); randint's 3 modulos and a
+                product and sum (int 5, imul 1).
+    Bytes: the state's 52 bytes a slot read once and written once."""
+    per_alive = {"fp32": 12 * (3 * 12 + 8 * 11 + 21) + 76,
+                 "convert": 12 * (3 * 2 + 8 * 3),
+                 "imul": 12 * (3 * 2 + 8 * 6),
+                 "int": 12 * (3 * 1 + 8 * 23), "fp64": 0}
+    per_spawn = {"fp32": 12 * 2 + 6 * 18 + 40,
+                 "convert": 12 * 2 + 6 * 16, "imul": 1,
+                 "int": 25 * 119 + 14 + 12 * 2 + 5,
+                 "fp64": 12 * 2 + 6 * 16}
+    per_slot = {"fp32": 3 * 2, "convert": 0, "imul": 0, "int": 1,
+                "fp64": 0}
+    ops = {k: per_slot[k] * n + per_alive[k] * alive
+           + per_spawn[k] * spawned for k in per_slot}
+    return dict(ops, bytes=2 * 52 * n)
+
+
+def sim_step_bound(work: dict) -> dict:
+    """ms by term for ``sim_step_work``'s counts: ``noise_bake_bound``'s
+    terms, the fp64 operations added to the issue slots, and the fp64
+    pipe."""
+    terms = noise_bake_bound({k: v for k, v in work.items() if k != "fp64"})
+    terms["issue"] += work["fp64"] / (ISSUE_PER_SM * SM_CLOCKS_PER_S) * 1e3
+    terms["fp64 pipe"] = work["fp64"] / (FP64_PER_SM * SM_CLOCKS_PER_S) * 1e3
+    return terms
+
+
+def check_sim_kernel(cfg, card, n_frames: int = N_FRAMES_C5) -> dict:
+    """The sim's kernels on ``cfg``'s particles, its ages drawn at 0.95 to
+    1.01 of the lifetimes so that slots die and respawn every step:
+    ``n_frames`` steps by the kernels and by the plain version on the
+    card, bit-equal after each (every attribute, frame, carry, time),
+    SIM_LAUNCHES launches a step; then a step timed: by events over
+    launches, replayed from a CUDA graph (the kernels' own time), on the
+    host clock between synchronizations (with the wrapper's host work),
+    the plain version by events; and the bound of ``sim_step_work``."""
+    import torch
+    from volq_torch.scene.state import init_scene
+    from volq_torch.sim import kernel as SK
+    from volq_torch.sim.step import _sim_step_plain, sim_step
+    cfg = dataclasses.replace(cfg, init_age_frac=(0.95, 1.01))
+    state = init_scene(cfg)
+    k = p = state
+    spawned = []
+    for i in range(n_frames):
+        n0 = SK.sim_step_kernel.launches
+        k = sim_step(k, cfg)
+        launches = SK.sim_step_kernel.launches - n0
+        p = _sim_step_plain(p, cfg)
+        differ = sum(int((a.view(torch.int32) if a.is_floating_point()
+                          else a).ne(b.view(torch.int32)
+                                     if b.is_floating_point() else b).sum())
+                     for a, b in zip((*k.particles, k.frame, k.spawn_carry,
+                                      k.time),
+                                     (*p.particles, p.frame, p.spawn_carry,
+                                      p.time)))
+        assert launches == SIM_LAUNCHES and differ == 0, \
+            f"sim step {i}: {launches} launches, {differ} words differ"
+        spawned.append(int(k.particles.age.eq(0).sum()))
+    n = k.particles.age.shape[0]
+    alive = int((k.particles.age + torch.tensor(cfg.dt, device="cuda")
+                 < k.particles.lifetime).sum())
+    ms, device_ms = _cuda_ms(lambda: sim_step(k, cfg), 50), \
+        _graph_ms(lambda: sim_step(k, cfg))
+    wall_ms = _wall_ms(lambda: sim_step(k, cfg), 50)
+    plain_ms = _cuda_ms(lambda: _sim_step_plain(k, cfg), 5)
+    work = sim_step_work(n, alive, round(sum(spawned) / n_frames))
+    terms = sim_step_bound(work)
+    by = max(terms, key=terms.get)
+    print(f"[timing] c5 sim_step, {n} slots ({alive} alive, spawned a step "
+          f"{spawned}), {n_frames} steps bit-equal to the plain version, "
+          f"{SIM_LAUNCHES} launches a step: kernels {ms:.4f} ms (device "
+          f"{device_ms:.4f} ms, host clock {wall_ms:.4f} ms), plain "
+          f"{plain_ms:.3f} ms, bound {terms[by]:.4f} ms ({by}; terms "
+          f"{ {k_: round(x, 5) for k_, x in terms.items()} }; work "
+          f"{work})  [{card}]")
+    return {"max_abs_err": 0.0, "ms": ms, "device_ms": device_ms,
+            "wall_ms": wall_ms, "plain_ms": plain_ms,
+            "launches_per_step": SIM_LAUNCHES, "spawned": spawned,
+            "alive": alive, "bound_ms": terms[by], "bound_by": by,
+            "bound_terms_ms": terms, "work": work}
+
+
 def _march_work(args):
     """(bytes in, flops) of the march + fan + exp part of kernels A and C
     on these inputs: the slab stacks of the distinct volumes the valid
@@ -769,8 +900,8 @@ def check_image(tag, image, stats, cfg):
 def drive(tag, state, camera, light, cfg, lv, sb, n, expect):
     """frames(n) from zeroed launch counters; the counts of the warp
     kernels and of the noise kernel must equal ``expect`` (per frame; 0
-    where absent: a static bank is baked at set-up) times n.  Returns
-    (state, image, counts)."""
+    where absent: a static bank is baked at set-up) times n, the sim
+    kernels' SIM_LAUNCHES times n.  Returns (state, image, counts)."""
     import torch
     from volq_torch.engine import loop
     _zero_counts()
@@ -782,8 +913,8 @@ def drive(tag, state, camera, light, cfg, lv, sb, n, expect):
     print(f"[main] {tag} frames(n={n}) in {dt:.3f} s, launches {counts}, "
           f"stats of the last frame "
           f"{ {k: int(v[-1]) for k, v in stats.items()} }")
-    for name in NAMES + ("noise_bake",):
-        want = expect.get(name, 0) * n
+    for name in NAMES + ("noise_bake", "sim_step"):
+        want = dict(expect, sim_step=SIM_LAUNCHES).get(name, 0) * n
         assert counts[name] == want, \
             f"{tag}: {name} launched {counts[name]} times in {n} frames, " \
             f"expected {want}"
@@ -1949,6 +2080,7 @@ def main() -> int:
         print(f"[bake] c5 {what}: {_wall_ms(fn, 3):.3f} ms per frame  "
               f"[{card}]")
     noise_rec = check_noise_bake(cfg, st1.time, card)
+    sim_rec = check_sim_kernel(cfg, card)
     check_fused("c5", st1, camera, light, cfg, lv, errs, run=RUN)
     # B's new modes each alone, on a run of particles: the cell canvas
     # without the interleaved association, and that association on a
@@ -2023,6 +2155,12 @@ def main() -> int:
                     "replaces": None,
                     "launches": c5_counts["noise_bake"],
                     "frames": N_FRAMES_C5, **noise_rec, "library_ms": None,
+                    "path": "c5"})
+    # the sim step: no TPU kernel (XLA fused it)
+    kernels.append({"name": "sim_step", "route": "cuda",
+                    "source": "volq_torch/csrc/sim_step.cu",
+                    "replaces": None, "launches": c5_counts["sim_step"],
+                    "frames": N_FRAMES_C5, **sim_rec, "library_ms": None,
                     "path": "c5"})
     for name in PROBES:
         k = {"name": name, "route": "cuda", "source": sources[name],

@@ -14,8 +14,10 @@ clears them.  Spans are named ``volq.<layer>[.<part>]``:
 
     volq.frame              engine/loop._frame_body (counts ``frames``)
     volq.sim                sim/step.sim_step
-      volq.sim.emit           emission and spawn_attrs
-      volq.sim.forces         sim/forces.total_force
+      volq.sim.emit           emission and spawn_attrs (on a card the
+                              sim_scan and sim_spawn launches)
+      volq.sim.forces         sim/forces.total_force (on a card the
+                              sim_forces launch)
     volq.bake.volumes       scene/state.bake_volumes
     volq.bake.light         volume/lightbake.render_light_volumes
     volq.bake.slabs         render/warp.bake_slab_banks
@@ -29,7 +31,8 @@ The counters ``h2d`` and ``d2h`` count the blocking copies between host
 and card (``core/device.h2d`` and ``d2h``); ``noise_kernel`` and
 ``noise_torch`` count the bakes of a noise bank by its CUDA kernel and by
 its plain version (``volume/bake.py``), so a frame shows which path its
-bank took.
+bank took; ``sim_kernel`` counts each launch of the sim's kernels
+(``sim/kernel.py``, three a step) and ``sim_torch`` each plain sim step.
 """
 from __future__ import annotations
 

@@ -7,10 +7,10 @@ Sets the preset up at full size (``--unfused``: with warp_fused=False;
 ``--perstep``: with light_mode="march"; both are the warp engine's), then
 prints, with the card's name and power limit:
 
-- the wall milliseconds per frame of the frame, the sim step (and of it
-  the spawn draws and the forces), for an animated preset the three bakes
-  every frame holds (4-D volume bank, light bank, slab banks), and the
-  render, each timed alone between device synchronizations;
+- the wall milliseconds per frame of the frame, the sim step (the sim's
+  three kernel launches), for an animated preset the three bakes every
+  frame holds (4-D volume bank, light bank, slab banks), and the render,
+  each timed alone between device synchronizations;
 - from a torch.profiler trace of ``--frames`` whole frames: the device's
   busy share, the kernels launched per frame, and for each of the
   program's spans (``core/trace``) the device's idle milliseconds a frame
@@ -18,7 +18,8 @@ prints, with the card's name and power limit:
   program's ``h2d`` and ``d2h`` counters beside the trace's host-to-card
   and card-to-host memcpy events whose runtime call it holds, and its
   other counters a frame (``noise_kernel`` / ``noise_torch``: the path
-  the volume bank's bake took);
+  the volume bank's bake took; ``sim_kernel`` / ``sim_torch``: the sim
+  step's);
 - the same frames again under torch.cuda's sync-debug mode: its warnings
   against the counters' total.
 
@@ -173,9 +174,6 @@ def main(argv=None) -> int:
     from volq_torch.render.warp import bake_slab_banks
     from volq_torch.scene.config import PRESETS
     from volq_torch.scene.state import bake_volumes
-    from volq_torch.sim import prng
-    from volq_torch.sim.emit import spawn_attrs
-    from volq_torch.sim.forces import total_force
     from volq_torch.sim.step import sim_step
 
     card = subprocess.run(
@@ -214,16 +212,9 @@ def main(argv=None) -> int:
         lv = sb = None      # the frames bake their own
     reps = 10
     p = state.particles
-    key = prng.fold_in(state.base_key, state.frame)
-    slots = torch.arange(p.age.shape[0], dtype=torch.int32, device=dev)
     phases = {
         "frame": lambda: loop.frame(state, camera, light, cfg, lv, sb),
         "sim_step": lambda: sim_step(state, cfg),
-        "  of which spawn_attrs (threefry draws)":
-            lambda: spawn_attrs(key, slots, cfg.emitter,
-                                cfg.volume.bank_size),
-        "  of which total_force (curl noise)":
-            lambda: total_force(p.pos, p.vel, state.time, cfg.forces),
         **bakes,
         "render_frame (banks baked)":
             lambda: render_frame(p, state.volumes, camera, light, cfg,

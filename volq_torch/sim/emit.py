@@ -3,6 +3,8 @@ spawning with per-slot threefry keys fold_in(fold_in(base, frame), slot),
 so every attribute is independent of array layout and replayable.
 ``spawn_attrs`` draws for all slots at once (the reference vmaps
 ``_spawn_one`` over slots; here the key batch is a leading dimension).
+On a card the step draws in ``csrc/sim_step.cu`` (``sim/kernel.py``),
+bit-equal to these.
 """
 from __future__ import annotations
 
@@ -17,6 +19,12 @@ def _vec(v, like):
     return h2d(v, like.device, torch.float32)
 
 
+# the floor of the spawn direction's norm and the radius draw's exponent
+# (sim/kernel.py passes both to the kernel)
+_NORM_EPS = 1e-6
+_THIRD = 1.0 / 3.0
+
+
 def spawn_attrs(key, slot_ids, ecfg: EmitterConfig, bank_size: int):
     """Fresh attributes for the given (global) slot ids: a dict of
     [len(slot_ids), ...] tensors, deterministic per (key, slot id)."""
@@ -26,8 +34,8 @@ def spawn_attrs(key, slot_ids, ecfg: EmitterConfig, bank_size: int):
     d = prng.normal(kp, (3,))
     norm = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
                       + d[:, 2] * d[:, 2])
-    d = d / torch.clamp(norm, min=1e-6)[:, None]
-    r = ecfg.radius * prng.uniform(kr) ** (1.0 / 3.0)
+    d = d / torch.clamp(norm, min=_NORM_EPS)[:, None]
+    r = ecfg.radius * prng.uniform(kr) ** _THIRD
     pos = _vec(ecfg.center, keys) + d * r[:, None]
     vel = _vec(ecfg.vel_base, keys) + ecfg.vel_spread * prng.normal(kv, (3,))
     lifetime = prng.uniform(kl, (), ecfg.life_min, ecfg.life_max)

@@ -2,7 +2,9 @@
 drag and curl noise (the curl of three Perlin potentials, by central
 differences).  The four difference points of each potential are
 evaluated in one batched ``perlin3`` call; the noise is elementwise, so
-the values equal the reference's one-point-at-a-time evaluation.
+the values equal the reference's one-point-at-a-time evaluation.  These
+torch ops are the plain version of ``csrc/sim_step.cu``'s ``sim_forces``
+kernel, which steps the card's particles (``sim/kernel.py``).
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from volq_torch.scene.config import ForcesConfig
 from volq_torch.volume.noise import perlin3
 
 _FD_H = 0.05
+# the potentials drift along y by _T_SCALE * t
+_T_SCALE = 0.1
 _POT_OFF = ((0.0, 0.0, 0.0), (31.416, 47.853, 12.793),
             (-19.113, 33.437, 7.661))
 # the two axes each potential is differentiated along (curl terms)
@@ -25,7 +29,7 @@ def _potential(q, comp: int, t, cfg: ForcesConfig):
     off = h2d(_POT_OFF[comp], q.device, torch.float32)
     q = q * cfg.curl_freq + off
     z = torch.zeros_like(t)
-    q = q + torch.stack([z, 0.1 * t, z], -1)
+    q = q + torch.stack([z, _T_SCALE * t, z], -1)
     return perlin3(q, cfg.curl_seed + comp)
 
 

@@ -102,10 +102,16 @@ def uniform(keys, shape=(), minval=0.0, maxval=1.0):
     bits = random_bits(keys, shape)
     fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fb.view(torch.float32) - 1.0
+    lo, span = uniform_bounds(minval, maxval)
+    lo_t = h2d(np.float32(lo), keys.device)
+    return torch.maximum(lo_t, _fma(floats, span, lo))
+
+
+def uniform_bounds(minval, maxval):
+    """``uniform``'s floor and span: fp32(minval) and the fp32 difference
+    fp32(maxval) - fp32(minval), as Python floats."""
     lo = np.float32(minval)
-    span = float(np.float32(maxval) - lo)
-    lo_t = h2d(lo, keys.device)
-    return torch.maximum(lo_t, _fma(floats, span, float(lo)))
+    return float(lo), float(np.float32(maxval) - lo)
 
 
 # XLA's fp32 ErfInv (M. Giles, "Approximating the erfinv function")
@@ -130,11 +136,15 @@ def _erfinv_f32(x):
     return torch.where(torch.abs(x) == 1.0, x * math.inf, r)
 
 
+# normal's uniform floor (-1 + ulp) and its scale, fp32 values
+NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+SQRT2 = float(np.float32(np.sqrt(2)))
+
+
 def normal(keys, shape=()):
     """jax.random.normal in fp32: sqrt(2) * erfinv(uniform(-1+ulp, 1))."""
-    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(keys, shape, lo, 1.0)
-    return float(np.float32(np.sqrt(2))) * _erfinv_f32(u)
+    u = uniform(keys, shape, NORMAL_LO, 1.0)
+    return SQRT2 * _erfinv_f32(u)
 
 
 def randint(keys, shape, minval: int, maxval: int):
@@ -143,9 +153,14 @@ def randint(keys, shape, minval: int, maxval: int):
     k = split(keys, 2)
     hi = random_bits(k[..., 0, :], shape)
     lo = random_bits(k[..., 1, :], shape)
-    span = (maxval - minval) & _MASK if maxval > minval else 1
-    mult = (1 << 16) % span
-    mult = ((mult * mult) & _MASK) % span
+    span, mult = randint_span(minval, maxval)
     off = (((hi % span) * mult) & _MASK) + (lo % span)
     off = (off & _MASK) % span
     return (minval + off).to(torch.int32)
+
+
+def randint_span(minval: int, maxval: int):
+    """``randint``'s span and multiplier (2^32 mod span), uint32 ints."""
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+    mult = (1 << 16) % span
+    return span, ((mult * mult) & _MASK) % span

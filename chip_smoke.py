@@ -6,7 +6,7 @@
 Phases (any failure raises, and the script exits non-zero without the
 final result line):
   1. print the card (nvidia-smi name, power limit) and torch/CUDA versions;
-  2. build the nine kernel sources (every mode of each is in its one source)
+  2. build the ten kernel sources (every mode of each is in its one source)
      from volq_torch/csrc/ (one nvcc per source, in parallel) and print
      the build seconds;
   2a. the probes: hold both arms of probe_mma (mma_sync, wgmma) against
@@ -127,17 +127,22 @@ final result line):
      the plain sim step over 4 steps of c5's particles aged so that slots
      die and respawn (check_sim_kernel: 3 launches a step), time them
      (events, a CUDA-graph replay, the host clock) and the plain step,
-     and their bound (sim_step_work, sim_step_bound); hold A at c5's
+     and their bound (sim_step_work, sim_step_bound); hold the light
+     kernel (light_bake.cu) bit-equal to the plain sweep on c5's bank
+     (check_light_kernel: 1 launch), time both (events, a CUDA-graph
+     replay) and its bound (light_bake_work, light_bake_bound: bytes,
+     operations, the chain of V - 1 steps); hold A at c5's
      shapes (every particle of a
      frame) in bf16 (c5's mode) and fp32, and B in both on the densest
      depth-contiguous run of 4096 particles (its plain version walks the
      16384 particles of a whole frame in most of a minute), then each of
      B's new modes alone on such a run (cell canvas without the
      interleaved association, and the interleaved association on a pixel
-     canvas); drive frames(n=4) from zeroed counters (A 1, B 1 and the
-     noise kernel 1 per frame: every frame re-bakes the bank; the other
-     configs' drives 0 noise-kernel launches, their banks baked at
-     set-up; every drive 3 sim-kernel launches a frame), check the image,
+     canvas); drive frames(n=4) from zeroed counters (A 1, B 1, the
+     noise kernel 1 and the light kernel 1 per frame: every frame
+     re-bakes the bank and its light bank; the other configs' drives 0
+     noise- and light-kernel launches, their banks baked at set-up;
+     every drive 3 sim-kernel launches a frame), check the image,
      time the kernels and
      the loop: the one timed walk of B's plain version holds B on every
      particle of a c5 frame;
@@ -154,7 +159,7 @@ final result line):
      (MESH_TIMING: 16 frames a window, 4 a call, one warm-up call, three
      turns), the medians side by side; time_frames(mesh=1) on c1 (the
      entry point, a rank process of its own);
- 12. print the kernels JSON line, eleven entries (per warp kernel:
+ 12. print the kernels JSON line, twelve entries (per warp kernel:
      launches, error, ms, plain ms and bound on the c4 path, with the c1
      warp, c2, c3, ortho, c4 per-step and c5 paths' numbers under
      "c1_warp", "c2", "c3", "c3_ortho", "c4_ortho", "c4_perstep" and
@@ -179,7 +184,9 @@ final result line):
      drive's "frames", ms, device ms, plain ms, bound and its terms,
      operations a voxel, its SASS's counts); "sim_step" on c5's
      particles (launches over the c5 drive's "frames", ms, device ms,
-     host-clock ms, plain ms, bound and its terms, the work counted); per
+     host-clock ms, plain ms, bound and its terms, the work counted);
+     "light_bake" on c5's bank (launches over the c5 drive's "frames",
+     ms, device ms, plain ms, bound and its terms, the work counted); per
      probe kernel: launches of the probes' run, error,
      and ms, plain ms, bound at one named point -- for probe_mma and
      probe_stage the new arm's (wgmma, tma) with the old arm's ms beside
@@ -363,10 +370,12 @@ def _wrappers():
     from volq_torch.render import kernel as K
     from volq_torch.sim import kernel as SK
     from volq_torch.volume import bake as VB
+    from volq_torch.volume import lightbake as LB
     return {"warp_march": K.warp_march, "warp_composite": K.warp_composite,
             "warp_images": K.warp_images,
             "composite_chunk": K.composite_chunk,
             "noise_bake": VB.noise_bake, "sim_step": SK.sim_step_kernel,
+            "light_bake": LB.light_bake,
             "probe_mma": probe.mma_probe, "probe_stage": probe.stage_probe,
             "probe_window": probe.window_probe}
 
@@ -757,6 +766,73 @@ def check_sim_kernel(cfg, card, n_frames: int = N_FRAMES_C5) -> dict:
             "bound_terms_ms": terms, "work": work}
 
 
+def light_bake_work(n: int, size: int, itemsize: int) -> dict:
+    """Operations, bytes and the chain of the light sweep of ``n`` entries
+    of ``size``^3 voxels stored ``itemsize`` bytes each, counted by hand
+    from the plain version (volume/lightbake.py).  Each of the V - 1
+    steps after the entry slice, per voxel of its plane: two bilinear
+    shifts of 3 lerps (sub, mul, add) each, and the trapezoid's add, two
+    multiplies and the add to the carried depth: 22 fp32 operations; the
+    constants (per entry) are left out.  Bytes: the bank read once, the
+    fp32 depth written once.  The chain: the V - 1 steps, each a carried
+    voxel's 7 dependent fp32 operations (its shift's two lerps and the
+    add), without the shared-memory round trip and the block's barrier
+    between steps."""
+    steps = size - 1
+    return {"fp32": 22 * n * size * size * steps,
+            "bytes": n * size ** 3 * (itemsize + 4),
+            "chain_steps": steps, "chain_ops": 7 * steps}
+
+
+def light_bake_bound(work: dict, fadd_clocks: float = 4.0) -> dict:
+    """ms by term for ``light_bake_work``'s counts: bytes at HBM's rate,
+    fp32 operations at the card's rate, and the chain's dependent
+    operations at ``fadd_clocks`` each (the fp32 add's latency probe_stage
+    times on the card, ~4 clocks) at the 1980-MHz clock."""
+    return {"bytes": work["bytes"] / HBM_BYTES_PER_S * 1e3,
+            "operations": work["fp32"] / FP32_FLOP_PER_S * 1e3,
+            "chain": work["chain_ops"] * fadd_clocks
+            / (SM_CLOCKS_PER_S / 132) * 1e3}
+
+
+def check_light_kernel(cfg, volumes, light, card) -> dict:
+    """The light kernel on ``volumes`` (``cfg``'s bank on the card) toward
+    ``light``: one launch, bit-equal to the plain sweep on the card (every
+    fp32 word), timed alone (events over launches, and a CUDA-graph
+    replay), the plain sweep timed, and the bound of ``light_bake_work``."""
+    import torch
+    from volq_torch.volume import lightbake as LB
+    axis = LB.dominant_axis(cfg.light.direction)
+
+    def kernel():
+        return LB.bake_light_volumes(volumes, light.direction, axis)
+
+    def plain():
+        return LB._bake_light_plain(volumes, light.direction, axis)
+
+    n0 = LB.light_bake.launches
+    got = kernel()
+    launches = LB.light_bake.launches - n0
+    differ = int((got.view(torch.int32) != plain().view(torch.int32)).sum())
+    assert launches == 1 and differ == 0, \
+        f"light_bake: {launches} launches, {differ} voxels differ"
+    ms, device_ms = _cuda_ms(kernel, 50), _graph_ms(kernel)
+    plain_ms = _cuda_ms(plain, 5)
+    n, size = volumes.shape[0], volumes.shape[-1]
+    work = light_bake_work(n, size, volumes.element_size())
+    terms = light_bake_bound(work)
+    by = max(terms, key=terms.get)
+    print(f"[timing] c5 light_bake {tuple(got.shape)} from "
+          f"{volumes.dtype}, axis {axis}, bit-equal to the plain sweep, 1 "
+          f"launch: kernel {ms:.4f} ms (device {device_ms:.4f} ms), plain "
+          f"{plain_ms:.3f} ms, bound {terms[by]:.4f} ms ({by}; terms "
+          f"{ {k: round(x, 5) for k, x in terms.items()} }; work {work})  "
+          f"[{card}]")
+    return {"max_abs_err": 0.0, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": terms[by], "bound_by": by,
+            "bound_terms_ms": terms, "work": work}
+
+
 def _march_work(args):
     """(bytes in, flops) of the march + fan + exp part of kernels A and C
     on these inputs: the slab stacks of the distinct volumes the valid
@@ -899,9 +975,9 @@ def check_image(tag, image, stats, cfg):
 
 def drive(tag, state, camera, light, cfg, lv, sb, n, expect):
     """frames(n) from zeroed launch counters; the counts of the warp
-    kernels and of the noise kernel must equal ``expect`` (per frame; 0
-    where absent: a static bank is baked at set-up) times n, the sim
-    kernels' SIM_LAUNCHES times n.  Returns (state, image, counts)."""
+    kernels, the noise kernel and the light kernel must equal ``expect``
+    (per frame; 0 where absent: a static bank and its light bank are
+    baked at set-up) times n, the sim kernels' SIM_LAUNCHES times n.  Returns (state, image, counts)."""
     import torch
     from volq_torch.engine import loop
     _zero_counts()
@@ -913,7 +989,7 @@ def drive(tag, state, camera, light, cfg, lv, sb, n, expect):
     print(f"[main] {tag} frames(n={n}) in {dt:.3f} s, launches {counts}, "
           f"stats of the last frame "
           f"{ {k: int(v[-1]) for k, v in stats.items()} }")
-    for name in NAMES + ("noise_bake", "sim_step"):
+    for name in NAMES + ("noise_bake", "sim_step", "light_bake"):
         want = dict(expect, sim_step=SIM_LAUNCHES).get(name, 0) * n
         assert counts[name] == want, \
             f"{tag}: {name} launched {counts[name]} times in {n} frames, " \
@@ -2081,6 +2157,7 @@ def main() -> int:
               f"[{card}]")
     noise_rec = check_noise_bake(cfg, st1.time, card)
     sim_rec = check_sim_kernel(cfg, card)
+    light_rec = check_light_kernel(cfg, st1.volumes, light, card)
     check_fused("c5", st1, camera, light, cfg, lv, errs, run=RUN)
     # B's new modes each alone, on a run of particles: the cell canvas
     # without the interleaved association, and that association on a
@@ -2094,9 +2171,11 @@ def main() -> int:
         check_composite(tag, c, Pm, comp, errs, run=RUN)
     del st1, lv, bank, lbank, march, comp, Pm
     torch.cuda.empty_cache()
-    # the 4-D bank is re-baked every frame: one noise-kernel launch each
+    # the 4-D bank and its light bank are re-baked every frame: one
+    # noise-kernel and one light-kernel launch each
     state, _, c5_counts = drive("c5", state, camera, light, cfg, None, None,
-                                N_FRAMES_C5, dict(fused, noise_bake=1))
+                                N_FRAMES_C5,
+                                dict(fused, noise_bake=1, light_bake=1))
     c5_times = time_fused("c5", state, camera, light, cfg, None, card, errs,
                           sweep=True)
     time_loop("c5", (state, camera, light, None, None), cfg, card,
@@ -2161,6 +2240,12 @@ def main() -> int:
                     "source": "volq_torch/csrc/sim_step.cu",
                     "replaces": None, "launches": c5_counts["sim_step"],
                     "frames": N_FRAMES_C5, **sim_rec, "library_ms": None,
+                    "path": "c5"})
+    # the light bank's sweep: no TPU kernel (XLA compiled its lax.scan)
+    kernels.append({"name": "light_bake", "route": "cuda",
+                    "source": "volq_torch/csrc/light_bake.cu",
+                    "replaces": None, "launches": c5_counts["light_bake"],
+                    "frames": N_FRAMES_C5, **light_rec, "library_ms": None,
                     "path": "c5"})
     for name in PROBES:
         k = {"name": name, "route": "cuda", "source": sources[name],

@@ -8,8 +8,9 @@ counters key by the innermost span, ``core/device``'s ``h2d`` / ``d2h``
 count off the CPU only, and the frames are bit-identical with and without
 the profiler.  Imports neither JAX nor volq; the ``gpu`` case (each span's
 counted host syncs equal to the trace's memcpy events under it, and to
-the sync-debug warnings; a frame's bank baked by the noise kernel, once)
-runs on the card, as does the ``gpu`` case of the sim (a card frame's
+the sync-debug warnings; a frame's bank baked by the noise kernel, once,
+and its light bank swept by the light kernel, once, with no copy) runs
+on the card, as does the ``gpu`` case of the sim (a card frame's
 step made by the sim's kernels: ``sim_kernel`` 3, no ``sim_torch`` and no
 copy under ``volq.sim*``; the reverse on the CPU):
 
@@ -114,11 +115,13 @@ def test_spans_nest_in_the_profiler_trace(tmp_path):
     spans = _spans(prof, tmp_path)
     assert {s[2]: _parent(s, spans) for s in spans} == PARENT
     assert sorted(s[2] for s in spans) == sorted(PARENT)    # once each
-    # on the CPU nothing crosses to a card: the frame, the plain sim step
-    # and the volume bank's plain bake alone are counted
+    # on the CPU nothing crosses to a card: the frame, the plain sim step,
+    # the volume bank's plain bake and the plain light sweep alone are
+    # counted
     assert trace.counters() == {("volq.frame", "frames"): 1,
                                 ("volq.sim", "sim_torch"): 1,
-                                ("volq.bake.volumes", "noise_torch"): 1}
+                                ("volq.bake.volumes", "noise_torch"): 1,
+                                ("volq.bake.light", "light_torch"): 1}
     assert trace._stack == []
 
 
@@ -199,8 +202,10 @@ def test_host_syncs_equal_the_trace_and_the_sync_warnings_on_card():
     seen = {s: t["HtoD"] + t["DtoH"] for s, t in tab["spans"].items()
             if t["HtoD"] + t["DtoH"]}
     assert counted == seen
-    # the sim's kernels take their constants as arguments: no copy
-    assert set(counted) >= {"volq.bake.light", "volq.render.prep"}
+    # the sim's and the light sweep's kernels read their inputs on the
+    # card: no copy
+    assert "volq.render.prep" in counted
+    assert "volq.bake.light" not in counted
     assert not any(s.startswith("volq.sim") for s in counted)
     assert counts[("volq.frame", "frames")] == n
     _, hits, total = sync_warnings(step, state, n)
@@ -219,6 +224,21 @@ def test_a_card_frame_bakes_its_bank_with_the_noise_kernel():
         state = loop.frame(state, camera, light, cfg)[0]
     assert trace.per_frame()["volq.bake.volumes"] == {"noise_kernel": 1.0}
     assert not any(k == "noise_torch" for _, k in trace.counters())
+
+
+@pytest.mark.gpu
+def test_a_card_frame_sweeps_its_light_bank_with_the_light_kernel():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the light kernel has no CPU mode)")
+    cfg = _tiny_c5()
+    state, camera, light = loop.setup(cfg)
+    state = loop.frame(state, camera, light, cfg)[0]
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        loop.frame(state, camera, light, cfg)
+    assert trace.per_frame()["volq.bake.light"] == {"light_kernel": 1.0}
+    assert not any(k == "light_torch" for _, k in trace.counters())
+    trace.reset()
 
 
 def _sim_counts():

@@ -26,8 +26,8 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "volq_torch"
 SOURCES = ("warp_march", "warp_composite", "warp_images",
-           "composite_chunk", "noise_bake", "sim_step", "probe_mma",
-           "probe_stage", "probe_window")
+           "composite_chunk", "noise_bake", "sim_step", "light_bake",
+           "probe_mma", "probe_stage", "probe_window")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

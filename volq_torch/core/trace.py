@@ -32,7 +32,9 @@ and card (``core/device.h2d`` and ``d2h``); ``noise_kernel`` and
 ``noise_torch`` count the bakes of a noise bank by its CUDA kernel and by
 its plain version (``volume/bake.py``), so a frame shows which path its
 bank took; ``sim_kernel`` counts each launch of the sim's kernels
-(``sim/kernel.py``, three a step) and ``sim_torch`` each plain sim step.
+(``sim/kernel.py``, three a step) and ``sim_torch`` each plain sim step;
+``light_kernel`` and ``light_torch`` count the sweeps of a light bank by
+its CUDA kernel and by its plain version (``volume/lightbake.py``).
 """
 from __future__ import annotations
 

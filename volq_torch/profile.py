@@ -19,7 +19,7 @@ prints, with the card's name and power limit:
   and card-to-host memcpy events whose runtime call it holds, and its
   other counters a frame (``noise_kernel`` / ``noise_torch``: the path
   the volume bank's bake took; ``sim_kernel`` / ``sim_torch``: the sim
-  step's);
+  step's; ``light_kernel`` / ``light_torch``: the light bank's sweep);
 - the same frames again under torch.cuda's sync-debug mode: its warnings
   against the counters' total.
 

@@ -14,11 +14,22 @@ The sweep runs along the volume axis most aligned with the light
 (``dominant_axis``), so the in-plane drift per slice is at most about
 one voxel.  The drift toward the light is L_plane / |L_axis| whichever
 face the light enters; only the sweep order depends on the sign.
+
+A bank on the card is swept by one CUDA kernel (``light_bake``,
+``csrc/light_bake.cu``), a block per entry, bit-equal to the plain
+version; it reads the light's direction on the card and takes bf16 and
+fp32 banks of V <= 128.  A bank on the CPU takes the plain version
+(``_bake_light_plain``): the slices walked from Python as torch ops.
+Under the program's tracing each kernel launch counts ``light_kernel``
+and each plain sweep ``light_torch``.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from volq_torch._build import check_tensor, function, ptr, stream
 from volq_torch.core import trace
 from volq_torch.core.device import d2h
 
@@ -71,11 +82,10 @@ def _shift2d(a, dx, dy):
     return _shift1(_shift1(a, dx, -2), dy, -1)
 
 
-def bake_light_volumes(volumes, light_dir, axis: int = 2):
-    """volumes: [M, V, V, V] (z-major) densities.  light_dir: [3] fp32
-    unit vector toward the light.  axis: static world axis to sweep
-    along (``dominant_axis(cfg.light.direction)``).  Returns tau_raw
-    [M, V, V, V] fp32 in the original z-major layout."""
+def _bake_light_plain(volumes, light_dir, axis: int = 2):
+    """``bake_light_volumes`` as torch ops, the kernel's plain version.
+    Counts ``light_torch``."""
+    trace.count("light_torch")
     perm, inv_perm, ci, cj = _SWEEPS[axis]
     M, V = volumes.shape[0], volumes.shape[-1]
     light_dir = light_dir.to(torch.float32)
@@ -108,6 +118,58 @@ def bake_light_volumes(volumes, light_dir, axis: int = 2):
             sig_prev = sig_k
         out[c0:c0 + _BAKE_CHUNK] = taus.permute(inv_perm)
     return out
+
+
+# the kernel's largest V (csrc/light_bake.cu's kMaxV: two [V, V] fp32
+# planes in shared memory)
+_MAX_V = 128
+_LIGHT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+    + [ctypes.c_float, ctypes.c_void_p]
+
+
+def light_bake(volumes, light_dir, axis: int = 2):
+    """Kernel: ``bake_light_volumes`` of a bank on the card in one launch,
+    bit-equal to ``_bake_light_plain``.  ``volumes`` [M, V, V, V] bf16 or
+    fp32, contiguous, 2 <= V <= 128; ``light_dir`` [3] fp32 on the same
+    card (read there, not copied).  Raises, before anything is built or
+    loaded, on a tensor it does not take or off a card."""
+    if volumes.dim() != 4 or len(set(volumes.shape[1:])) != 1:
+        raise ValueError(f"volumes: shape {tuple(volumes.shape)} is not "
+                         "[M, V, V, V]")
+    M, V = volumes.shape[0], volumes.shape[-1]
+    if not 2 <= V <= _MAX_V:
+        raise ValueError(f"light_bake takes 2 <= V <= {_MAX_V}, not {V}")
+    if axis not in _SWEEPS:
+        raise ValueError(f"axis {axis} is not 0, 1 or 2")
+    dev = volumes.device
+    check_tensor(volumes, "volumes", (torch.bfloat16, torch.float32))
+    check_tensor(light_dir, "light_dir", (torch.float32,), (3,), dev)
+    if dev.type != "cuda":
+        raise ValueError(f"light_bake runs on a CUDA device, not {dev} (the "
+                         "CPU takes _bake_light_plain)")
+    out = torch.empty((M, V, V, V), dtype=torch.float32, device=dev)
+    err = function("light_bake", "light_bake_launch", _LIGHT_ARGS)(
+        ptr(volumes), ptr(out), ptr(light_dir), M, V, axis,
+        int(volumes.dtype == torch.bfloat16), MIN_LAXIS, stream(dev))
+    if err:
+        raise RuntimeError(f"light_bake launch failed: CUDA error {err}")
+    light_bake.launches += 1
+    trace.count("light_kernel")
+    return out
+
+
+light_bake.launches = 0
+
+
+def bake_light_volumes(volumes, light_dir, axis: int = 2):
+    """volumes: [M, V, V, V] (z-major) densities.  light_dir: [3] fp32
+    unit vector toward the light.  axis: static world axis to sweep
+    along (``dominant_axis(cfg.light.direction)``).  Returns tau_raw
+    [M, V, V, V] fp32 in the original z-major layout: on a card by one
+    launch of ``light_bake``, on the CPU by ``_bake_light_plain``."""
+    if volumes.device.type == "cuda":
+        return light_bake(volumes, light_dir, axis)
+    return _bake_light_plain(volumes, light_dir, axis)
 
 
 def render_light_volumes(volumes, light, cfg):

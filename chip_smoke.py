@@ -365,30 +365,23 @@ def ortho_view(cfg, state, camera):
     return ocfg, cam, hh
 
 
-def _wrappers():
-    from volq_torch import probe
-    from volq_torch.render import kernel as K
-    from volq_torch.sim import kernel as SK
-    from volq_torch.volume import bake as VB
-    from volq_torch.volume import lightbake as LB
-    return {"warp_march": K.warp_march, "warp_composite": K.warp_composite,
-            "warp_images": K.warp_images,
-            "composite_chunk": K.composite_chunk,
-            "noise_bake": VB.noise_bake, "sim_step": SK.sim_step_kernel,
-            "light_bake": LB.light_bake,
-            "probe_mma": probe.mma_probe, "probe_stage": probe.stage_probe,
-            "probe_window": probe.window_probe}
-
-
-def _zero_counts():
-    for fn in _wrappers().values():
-        fn.launches = 0
-        if hasattr(fn, "arm_launches"):
-            fn.arm_launches = dict.fromkeys(fn.arm_launches, 0)
+# the C functions of the kernels that launch through more than one, as
+# ``_build.launches`` counts them: the sim step's three, each probe's arms
+# in the order of its ARMS; every other kernel's is "<kernel>_launch"
+LAUNCHES = {
+    "sim_step": ("sim_scan_launch", "sim_spawn_launch", "sim_forces_launch"),
+    "probe_mma": ("probe_mma_launch", "probe_mma_wgmma_launch"),
+    "probe_stage": ("probe_stage_launch", "probe_stage_tma_launch"),
+    "probe_window": ("probe_window_launch", "probe_window_tma_launch")}
 
 
 def _counts():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Launches by kernel since the last ``_build.launches.clear()``."""
+    from volq_torch import _build
+    return {name: sum(_build.launches[f]
+                      for f in LAUNCHES.get(name, (f"{name}_launch",)))
+            for name in NAMES + ("noise_bake", "sim_step", "light_bake")
+            + PROBES}
 
 
 def _sub_run(Pm, comp, k0, n):
@@ -617,9 +610,9 @@ def check_noise_bake(cfg, t, card) -> dict:
                               v.noise_scale, v.cutoff, v.edge,
                               torch.bfloat16, t.device)
 
-    n0 = VB.noise_bake.launches
+    n0 = _counts()["noise_bake"]
     got = kernel()
-    launches = VB.noise_bake.launches - n0
+    launches = _counts()["noise_bake"] - n0
     differ = int((got.view(torch.int16) != plain().view(torch.int16)).sum())
     assert launches == 1 and differ == 0, \
         f"noise_bake: {launches} launches, {differ} voxels differ"
@@ -721,16 +714,15 @@ def check_sim_kernel(cfg, card, n_frames: int = N_FRAMES_C5) -> dict:
     the plain version by events; and the bound of ``sim_step_work``."""
     import torch
     from volq_torch.scene.state import init_scene
-    from volq_torch.sim import kernel as SK
     from volq_torch.sim.step import _sim_step_plain, sim_step
     cfg = dataclasses.replace(cfg, init_age_frac=(0.95, 1.01))
     state = init_scene(cfg)
     k = p = state
     spawned = []
     for i in range(n_frames):
-        n0 = SK.sim_step_kernel.launches
+        n0 = _counts()["sim_step"]
         k = sim_step(k, cfg)
-        launches = SK.sim_step_kernel.launches - n0
+        launches = _counts()["sim_step"] - n0
         p = _sim_step_plain(p, cfg)
         differ = sum(int((a.view(torch.int32) if a.is_floating_point()
                           else a).ne(b.view(torch.int32)
@@ -810,9 +802,9 @@ def check_light_kernel(cfg, volumes, light, card) -> dict:
     def plain():
         return LB._bake_light_plain(volumes, light.direction, axis)
 
-    n0 = LB.light_bake.launches
+    n0 = _counts()["light_bake"]
     got = kernel()
-    launches = LB.light_bake.launches - n0
+    launches = _counts()["light_bake"] - n0
     differ = int((got.view(torch.int32) != plain().view(torch.int32)).sum())
     assert launches == 1 and differ == 0, \
         f"light_bake: {launches} launches, {differ} voxels differ"
@@ -979,8 +971,9 @@ def drive(tag, state, camera, light, cfg, lv, sb, n, expect):
     (per frame; 0 where absent: a static bank and its light bank are
     baked at set-up) times n, the sim kernels' SIM_LAUNCHES times n.  Returns (state, image, counts)."""
     import torch
+    from volq_torch import _build
     from volq_torch.engine import loop
-    _zero_counts()
+    _build.launches.clear()
     t0 = time.perf_counter()
     state, image, stats = loop.frames(state, camera, light, cfg, lv, sb, n=n)
     torch.cuda.synchronize()
@@ -1432,15 +1425,18 @@ def check_probe_sass():
 def run_probes(card):
     """The probes' entry point, in process, from zeroed counters.  Returns
     (launch counts, records by probe)."""
-    from volq_torch import probe
+    from volq_torch import _build
     from volq_torch.probe import __main__ as probe_main
-    _zero_counts()
+    from volq_torch.probe import stage, tensor_core, window
+    _build.launches.clear()
     recs = {name: probe_main.RUNNERS[name](card)
             for name in ("mma", "stage", "window")}
     counts = _counts()
-    arms = {"probe_mma": dict(probe.mma_probe.arm_launches),
-            "probe_stage": dict(probe.stage_probe.arm_launches),
-            "probe_window": dict(probe.window_probe.arm_launches)}
+    arms = {name: {arm: _build.launches[f]
+                   for arm, f in zip(mod.ARMS, LAUNCHES[name])}
+            for name, mod in (("probe_mma", tensor_core),
+                              ("probe_stage", stage),
+                              ("probe_window", window))}
     print(f"[main] probes: launches {counts}, by arm {arms}")
     for name in PROBES:
         assert counts[name] > 0, f"{name} never launched in the probes' run"
@@ -1637,6 +1633,7 @@ def drive_cli(card):
     B.  Returns the launch counts of c1's frame under engine=warp on its
     Pallas path."""
     import numpy as np
+    from volq_torch import _build
     from volq_torch.cli import main as cli
     with tempfile.TemporaryDirectory() as tmp:
         j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
@@ -1690,7 +1687,7 @@ def drive_cli(card):
                 ("xla", warp, {}),
                 ("pallas", warp + ["--set", "render.warp_pallas=true"],
                  {"warp_march": 1, "warp_composite": 1})):
-            _zero_counts()
+            _build.launches.clear()
             t0 = time.perf_counter()
             assert cli(["--preset", "c1", "--frames", "1", "--out",
                         j("w" + tag), "--npy"] + flags) == 0
@@ -1718,7 +1715,7 @@ def drive_cli(card):
               f"ortho) max diff {d:.3e} (budget {XLA_BUDGET:.0e}, fp32)")
         assert d <= XLA_BUDGET, f"c1 XLA vs Pallas path: {d}"
 
-        _zero_counts()
+        _build.launches.clear()
         t0 = time.perf_counter()
         assert cli(["--preset", "c2", "--frames", "2", "--out", j("c2"),
                     "--npy"]) == 0
@@ -1930,9 +1927,8 @@ def run_mesh(card, refs):
         for k in ("alive", "pairs_kept"):
             if k in ref["stats"]:
                 assert rec["stats"][k] == ref["stats"][k], (tag, k)
-        assert rec["launches"]["warp_march"] == want, (tag, rec["launches"])
-        assert rec["launches"]["warp_composite"] == want, \
-            (tag, rec["launches"])
+        for name in ("warp_march_launch", "warp_composite_launch"):
+            assert rec["launches"][name] == want, (tag, rec["launches"])
         ms = {k: [w * 1e3 for w in v] for k, v in rec["times"].items()}
         med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
         print(f"[mesh] {tag}: {med['sharded']:.3f} ms/frame at mesh 1 (NCCL, "
@@ -2207,7 +2203,7 @@ def main() -> int:
         for tag in ("c3", "c5"):
             if name in ("warp_march", "warp_composite"):
                 k[f"{tag}_mesh1"] = {
-                    "launches": mesh_recs[tag]["launches"][name],
+                    "launches": mesh_recs[tag]["launches"][f"{name}_launch"],
                     "frame_ms": mesh_recs[tag]["ms"]}
         for path, counts, times in (("c1_warp", c1_counts, c1_times),
                                     ("c2", c2_counts, c2_times),

@@ -43,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 
+from volq_torch import _build
 from volq_torch.engine import loop
 from volq_torch.render import kernel as K
 from volq_torch.render.warp import fused_inputs, unfused_inputs
@@ -53,6 +54,15 @@ from volq_torch.scene.config import (SceneConfig, VolumeConfig,
 from volq_torch.volume import bake as VB
 
 pytestmark = pytest.mark.gpu
+
+# kernels A, B, C and D by their C functions (``_build.launches``' keys)
+ABCD = ("warp_march_launch", "warp_composite_launch", "warp_images_launch",
+        "composite_chunk_launch")
+
+
+def _since(n0, names=ABCD) -> list:
+    """Launches of ``names`` since ``n0``, a copy of ``_build.launches``."""
+    return [_build.launches[f] - n0[f] for f in names]
 
 EYES = {"yawed": (0.3, 0.8, -5.0), "pitched": (0.0, 1.0, -5.5),
         "behind": (0.2, 0.6, 5.0)}
@@ -169,16 +179,15 @@ def test_unfused_frames_count_launches_and_match_fused():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     cfg, state, camera, light, lv, bank, lbank = _lit_setup(
         "pitched", False, warp_fused=False, warp_mega=8)
-    fns = (K.warp_march, K.warp_composite, K.warp_images, K.composite_chunk)
-    n0 = [fn.launches for fn in fns]
+    n0 = _build.launches.copy()
     _, img_u, stats = loop.frames(state, camera, light, cfg, lv,
                                   (bank, lbank), n=2)
-    assert [fn.launches - n for fn, n in zip(fns, n0)] == [0, 0, 6, 6]
+    assert _since(n0) == [0, 0, 6, 6]
     fcfg = dataclasses.replace(cfg, render=dataclasses.replace(
         cfg.render, warp_fused=True))
     _, img_f, _ = loop.frames(state, camera, light, fcfg, lv, (bank, lbank),
                               n=2)
-    assert [fn.launches - n for fn, n in zip(fns, n0)] == [2, 2, 6, 6]
+    assert _since(n0) == [2, 2, 6, 6]
     assert bool(torch.isfinite(img_u).all())
     assert float((img_u - img_f).abs().max()) <= 4 / 256
     assert int(stats["rendered"][-1]) > 0
@@ -193,11 +202,10 @@ def test_frames_count_one_launch_each_per_frame():
         cfg.emitter, rate=600.0, life_min=3.0, life_max=6.0))
     state, camera, light = loop.setup(cfg, device="cuda")
     sb = loop.cached_slab_banks(state, None, cfg)
-    n0 = (K.warp_march.launches, K.warp_composite.launches)
+    n0 = _build.launches.copy()
     state, image, stats = loop.frames(state, camera, light, cfg, None, sb,
                                       n=3)
-    assert (K.warp_march.launches - n0[0],
-            K.warp_composite.launches - n0[1]) == (3, 3)
+    assert _since(n0, ABCD[:2]) == [3, 3]
     assert bool(torch.isfinite(image).all())
     assert int(stats["rendered"][-1]) > 0
 
@@ -308,11 +316,10 @@ def test_animated_coarse_frames_count_launches():
     state, camera, light = loop.setup(cfg, device="cuda")
     assert loop.cached_light_volumes(state, light, cfg) is None
     assert loop.cached_slab_banks(state, None, cfg) is None
-    n0 = (K.warp_march.launches, K.warp_composite.launches)
+    n0 = _build.launches.copy()
     v0 = state.volumes.clone()
     state, image, stats = loop.frames(state, camera, light, cfg, n=3)
-    assert (K.warp_march.launches - n0[0],
-            K.warp_composite.launches - n0[1]) == (3, 3)
+    assert _since(n0, ABCD[:2]) == [3, 3]
     assert not torch.equal(state.volumes, v0)
     assert bool(torch.isfinite(image).all())
     assert int(stats["rendered"][-1]) > 0
@@ -362,11 +369,11 @@ def test_probe_mma_matches_plain(shape, nacc, blocks, arm):
     A, B = tensor_core.make_inputs(R, M, Kd, N, "cuda", seed=M)
     plan = tensor_core.plan_for(arm, R, M, Kd, N, nacc)
     assert plan.resident == (Kd < 1280)
-    n0, a0 = probe.mma_probe.launches, probe.mma_probe.arm_launches[arm]
+    n0 = _build.launches.copy()
     out = probe.mma_probe(A, B, 5, nacc, blocks, arm)
     ref = probe.mma_probe_plain(A, B, 5, blocks)
-    assert probe.mma_probe.launches == n0 + 1
-    assert probe.mma_probe.arm_launches[arm] == a0 + 1
+    fn = {"mma_sync": "probe_mma_launch", "wgmma": "probe_mma_wgmma_launch"}
+    assert _build.launches - n0 == {fn[arm]: 1}
     assert tuple(out.shape) == (blocks, M, N)
     assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
     assert float(probe.mma_probe(A, B, 0, nacc, blocks, arm).abs().max()) \
@@ -389,16 +396,17 @@ def test_probe_stage_matches_plain(mix, run):
     from volq_torch.probe import stage
     arm, depth = run
     args = stage.make_inputs(*mix, "cuda", M=8)
-    n0 = probe.stage_probe.launches
+    n0 = _build.launches.copy()
     if arm == "tma" and not stage.ring_fits(*mix, depth):
         with pytest.raises(ValueError):
             probe.stage_probe(*args, 5, arm, depth)
-        assert probe.stage_probe.launches == n0
+        assert _build.launches == n0
         return
     for G in (0, 1, 2, 19, 300):
         out = probe.stage_probe(*args, G, arm, depth)
         assert torch.equal(out, probe.stage_probe_plain(*args, G)), G
-    assert probe.stage_probe.launches == n0 + 5
+    fn = {"cp_async": "probe_stage_launch", "tma": "probe_stage_tma_launch"}
+    assert _build.launches - n0 == {fn[arm]: 5}
 
 
 @pytest.mark.parametrize("run", [("cp_async", 128), ("cp_async", 16),
@@ -420,6 +428,8 @@ def test_probe_window_matches_plain(run):
     from volq_torch import probe
     from volq_torch.probe import window
     arm, align = run
+    fn = {"cp_async": "probe_window_launch",
+          "tma": "probe_window_tma_launch"}[arm]
     cases = [((24, 256), window.make_offsets(align, 257, 24, 256, seed=257)),
              ((window.H, window.W), window.make_offsets(align)),
              ((24, 256), window.make_offsets(align, window.MAX_LIST + 300,
@@ -432,22 +442,22 @@ def test_probe_window_matches_plain(run):
     for (h, w), o in cases:
         off = torch.from_numpy(o)
         n = off.numel() // 2
-        n0 = probe.window_probe.launches
+        n0 = _build.launches.copy()
         out = probe.window_probe(torch.zeros((h, w), device="cuda"),
                                  off.cuda(), align, arm=arm)
         ref = probe.window_probe_plain(torch.zeros((h, w)), off, align)
         assert torch.equal(out.cpu(), ref), (h, w, n)
         assert float(out.sum()) == n * window.WH * window.WW
-        assert probe.window_probe.launches == n0 + -(-n // window.MAX_LIST)
+        assert _build.launches - n0 == {fn: -(-n // window.MAX_LIST)}
         assert probe.window_probe.blocks == (h - window.WH) // window.WH + 1
     with pytest.raises(ValueError):
         probe.window_probe(torch.zeros((24, 256), device="cuda"),
                            off[:8].cuda() + 2, align, arm=arm)
     # no windows: nothing launches and nothing is counted
-    n0 = probe.window_probe.launches
+    n0 = _build.launches.copy()
     blank = torch.zeros((24, 256), device="cuda")
     assert probe.window_probe(blank, off[:0].cuda(), align, arm=arm) is blank
-    assert probe.window_probe.launches == n0
+    assert _build.launches == n0
 
 
 def test_window_rt_clocks():
@@ -529,14 +539,13 @@ def test_xla_path_on_the_card_matches_cpu(proj):
         cfg.render, warp_pallas=False))
     if proj == "ortho":
         cfg = _ortho(cfg)
-    fns = (K.warp_march, K.warp_composite, K.warp_images, K.composite_chunk)
-    n0 = [fn.launches for fn in fns]
+    n0 = _build.launches.copy()
     imgs = []
     for dev in ("cuda", "cpu"):
         state, camera, light = loop.setup(cfg, device=dev)
         assert loop.cached_slab_banks(state, None, cfg) is None
         imgs.append(loop.render_only(state, camera, light, cfg)[0].cpu())
-    assert [fn.launches for fn in fns] == n0
+    assert _since(n0) == [0, 0, 0, 0]
     assert float(imgs[0][..., 3].max()) > 0.05
     assert float((imgs[0] - imgs[1]).abs().max()) <= 1e-5
 
@@ -903,9 +912,9 @@ def test_chunk_dtypes_and_order_match_plain(cdt, idt, ordered):
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     canvas, args = _synthetic_chunk(600, 3, cdt=cdt, idt=idt,
                                     ordered=ordered)
-    n0 = K.composite_chunk.launches
+    n0 = _build.launches.copy()
     out = K.composite_chunk(canvas.clone(), *args)
-    assert K.composite_chunk.launches == n0 + 1
+    assert _build.launches - n0 == {"composite_chunk_launch": 1}
     ref = K.composite_chunk_plain(canvas.clone(), *args)
     assert torch.equal(out, ref)
     assert not torch.equal(out, canvas)
@@ -946,10 +955,10 @@ def test_chunk_bf16_views_and_edge_words():
     buf = torch.empty(m + 1, dtype=images.dtype, device=images.device)
     inner = buf[1:].view(images.shape)
     inner.copy_(images)
-    n0 = K.composite_chunk.launches
+    n0 = _build.launches.copy()
     with pytest.raises(ValueError):
         K.composite_chunk(canvas.clone(), inner, *args[1:])
-    assert K.composite_chunk.launches == n0
+    assert _build.launches == n0
     buf = torch.empty(m + 2, dtype=images.dtype, device=images.device)
     inner = buf[1:-1].view(images.shape)
     inner.copy_(images)
@@ -994,9 +1003,9 @@ def test_chunk_fill_matches_plain():
                                    ordered=ordered)
         oy, ox, order, cp = args[1:]
         plan = K.chunk_plan(cp)
-        n0 = K.chunk_fill.launches
+        n0 = _build.launches.copy()
         counts, slots = K.chunk_fill(oy, ox, order, cp)
-        assert K.chunk_fill.launches == n0 + 1
+        assert _build.launches - n0 == {"composite_chunk_fill": 1}
         offs, lists = K.chunk_lists_plain(
             oy.cpu(), ox.cpu(), None if order is None else order.cpu(), cp)
         assert torch.equal(counts.cpu(), offs[1:] - offs[:-1])
@@ -1039,9 +1048,9 @@ def test_noise_bake_4d_equals_plain_at_c5_shapes(t, seed):
     v = c5_preset().volume
     assert float(VB._volume_offsets(torch.arange(v.bank_size), seed)
                  .min()) < -1.0
-    n0 = VB.noise_bake.launches
+    n0 = _build.launches.copy()
     got = _bake_4d(v, t, seed)
-    assert VB.noise_bake.launches == n0 + 1
+    assert _build.launches - n0 == {"noise_bake_launch": 1}
     assert got.shape == (16, 64, 64, 64) and got.dtype == torch.bfloat16
     assert torch.equal(_bits(got), _bits(_bake_4d(v, t, seed, plain=True)))
     assert float(got.float().max()) > 0.1
@@ -1071,9 +1080,9 @@ def test_noise_bake_3d_equals_plain_at_a_c3_like_shape():
     v = c3_preset().volume
     kw = dict(octaves=v.octaves, noise_scale=v.noise_scale,
               cutoff=v.cutoff, edge=v.edge)
-    n0 = VB.noise_bake.launches
+    n0 = _build.launches.copy()
     got = VB.bake_bank(6, 32, v.seed, **kw)
-    assert VB.noise_bake.launches == n0 + 1
+    assert _build.launches - n0 == {"noise_bake_launch": 1}
     ref = VB._bake_plain(6, 32, v.seed, VB._noise_3d(v.seed, v.octaves),
                          v.noise_scale, v.cutoff, v.edge, torch.bfloat16,
                          got.device)
@@ -1085,4 +1094,4 @@ def test_noise_bake_3d_equals_plain_at_a_c3_like_shape():
     assert torch.equal(_bits(got), _bits(f32.to(torch.bfloat16)))
     with pytest.raises(ValueError, match="bf16"):
         VB.bake_bank(6, 32, v.seed, dtype=torch.float32, **kw)
-    assert VB.noise_bake.launches == n0 + 1
+    assert _build.launches - n0 == {"noise_bake_launch": 1}

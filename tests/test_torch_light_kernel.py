@@ -54,7 +54,7 @@ def test_cpu_bank_takes_the_plain_path_and_counts_light_torch(monkeypatch):
     vol = _bank(3, 8, torch.bfloat16, "cpu")
     L = _unit(LIGHTS[4], "cpu")
     plain = TB._bake_light_plain(vol, L, axis=1)
-    monkeypatch.setattr(TB, "function", _refuse)
+    monkeypatch.setattr(_build, "launch", _refuse)
     monkeypatch.setattr(TB, "light_bake", _refuse)
 
     class _Light:
@@ -96,7 +96,7 @@ _V8 = (2, 8, 8, 8)
         "light-fp64", "light-shape", "cpu"])
 def test_the_wrapper_refuses_before_building(monkeypatch, shape, dtype,
                                              axis, light, match):
-    monkeypatch.setattr(TB, "function", _refuse)
+    monkeypatch.setattr(_build, "launch", _refuse)
     if shape == "strided":
         vol = torch.zeros((2, 8, 8, 16), dtype=dtype)[..., ::2]
     else:
@@ -127,9 +127,9 @@ def test_kernel_equals_the_plain_sweep_on_the_card(card, L_raw, v, m, dtype):
     vol = _bank(m, v, dtype, card, seed=v * 1000 + m)
     L = _unit(L_raw, card)
     axis = TB.dominant_axis(L_raw)
-    n0 = TB.light_bake.launches
+    n0 = _build.launches["light_bake_launch"]
     got = TB.bake_light_volumes(vol, L, axis)
-    assert TB.light_bake.launches == n0 + 1
+    assert _build.launches["light_bake_launch"] == n0 + 1
     want = TB._bake_light_plain(vol, L, axis)
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert torch.equal(got, want)
@@ -144,13 +144,13 @@ def test_kernel_equals_the_plain_sweep_on_the_card(card, L_raw, v, m, dtype):
 def test_kernel_counts_a_launch_a_call_and_refuses_v_above_128(card):
     L = _unit(LIGHTS[4], card)
     vol = _bank(2, 16, torch.bfloat16, card)
-    n0 = TB.light_bake.launches
+    n0 = _build.launches["light_bake_launch"]
     for i in range(1, 4):
         TB.light_bake(vol, L, 1)
-        assert TB.light_bake.launches == n0 + i
+        assert _build.launches["light_bake_launch"] == n0 + i
     big = torch.zeros((1, 129, 129, 129), dtype=torch.bfloat16, device=card)
     with pytest.raises(ValueError, match="V <= 128"):
         TB.light_bake(big, L, 1)
     with pytest.raises(ValueError, match="on cpu"):
         TB.light_bake(vol, L.cpu(), 1)
-    assert TB.light_bake.launches == n0 + 3
+    assert _build.launches["light_bake_launch"] == n0 + 3

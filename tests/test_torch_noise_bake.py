@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from volq.volume import bake as jb, noise as jn
+from volq_torch import _build
 from volq_torch.volume import bake as tb, noise as tn
 
 
@@ -152,7 +153,6 @@ def test_plain_bake_counts_noise_torch(animated):
 
 
 def test_noise_kernel_is_built_with_the_others():
-    from volq_torch import _build
     assert "noise_bake" in _build.SOURCES
     src = (_build.CSRC / "noise_bake.cu").read_text()
     body = re.search(r"struct NoiseParams \{(.*?)\};", src, re.S).group(1)
@@ -182,7 +182,7 @@ def test_noise_bake_refuses_before_loading(case, error, match, monkeypatch):
     def refuse(*args):
         raise AssertionError("loaded a kernel for refused inputs")
 
-    monkeypatch.setattr(tb, "function", refuse)
+    monkeypatch.setattr(_build, "launch", refuse)
     with pytest.raises(error, match=match):
         tb.noise_bake(_P, "cpu", **case)
 
@@ -202,7 +202,8 @@ def test_card_bank_of_another_dtype_is_refused(bake, monkeypatch):
 
     monkeypatch.setattr(tb, "resolve_device",
                         lambda device=None: torch.device("cuda"))
-    for name in ("function", "noise_bake", "_bake_plain"):
+    monkeypatch.setattr(_build, "launch", refuse)
+    for name in ("noise_bake", "_bake_plain"):
         monkeypatch.setattr(tb, name, refuse)
     with pytest.raises(ValueError, match="bf16"):
         bake()

@@ -25,6 +25,7 @@ from volq.oracle.warp_cpu import render_warp_oracle
 import volq_torch.scene.config as TC
 from volq_torch.convert import (state_from_numpy, camera_from_numpy,
                                 light_from_numpy)
+from volq_torch import _build
 from volq_torch.engine import loop as TL
 from volq_torch.render import kernel as K
 from volq_torch.render import warp as tw
@@ -210,8 +211,7 @@ def test_perstep_wrappers_on_cpu_run_plain_and_count_nothing(tiny_lit_cfg):
     _, (tst, tcam, tli), lv = _scene(warpify(tiny_lit_cfg,
                                              warp_march_rect=32, **BF16))
     bank, lbank = tw.bake_slab_banks(tst.volumes, lv, cfg)
-    fns = (K.warp_march, K.warp_composite, K.warp_images, K.composite_chunk)
-    n0 = [fn.launches for fn in fns]
+    n0 = _build.launches.copy()
     march, comp, _ = tw.fused_inputs(tst.particles, tcam, tli, cfg, bank, 0,
                                      64, lbank)
     Pm, clamp = K.warp_march(*march)
@@ -228,6 +228,6 @@ def test_perstep_wrappers_on_cpu_run_plain_and_count_nothing(tiny_lit_cfg):
     assert images.dtype == torch.bfloat16
     assert tuple(images.shape) == (8, 4, 48, 48)
     assert torch.equal(clamp_u, clamp)
-    assert [fn.launches for fn in fns] == n0
+    assert _build.launches == n0
     with pytest.raises(ValueError, match="light slab bank"):
         K.warp_march(*march[:7])

@@ -21,7 +21,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from volq_torch import probe
+from volq_torch import _build, probe
 from volq_torch.probe import stage, tensor_core, window
 
 BENCH = pathlib.Path(__file__).resolve().parent.parent / "bench"
@@ -78,7 +78,8 @@ def test_mma_plain_matches_pallas_body(shape, nacc):
     assert np.abs(got[0].numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
     # on a CPU tensor the wrapper takes the plain version
     assert torch.equal(probe.mma_probe(tA, tB, G, nacc, blocks=2), got)
-    assert probe.mma_probe.launches == 0
+    assert _build.launches["probe_mma_launch"] == 0
+    assert _build.launches["probe_mma_wgmma_launch"] == 0
 
 
 def test_mma_plans_cover_the_reference_shapes():
@@ -196,7 +197,7 @@ def test_new_arms_on_the_cpu_run_the_plain_versions():
     """On CPU tensors the wgmma and tma arms (the defaults) return the
     plain result and launch nothing; an unknown arm, a ring shallower than
     two, a ring that does not fit and a misaligned stack are refused."""
-    n0, s0 = probe.mma_probe.launches, probe.stage_probe.launches
+    n0 = _build.launches.copy()
     A, B = tensor_core.make_inputs(3, 80, 128, 64, "cpu")
     ref = probe.mma_probe_plain(A, B, 2, 2)
     for arm in ("wgmma", "mma_sync"):
@@ -208,9 +209,10 @@ def test_new_arms_on_the_cpu_run_the_plain_versions():
                        ("cp_async", None)):
         assert torch.equal(probe.stage_probe(*args, 9, arm, depth), ref)
     assert torch.equal(probe.stage_probe(*args, 9), ref)
-    assert (probe.mma_probe.launches, probe.stage_probe.launches) == (n0, s0)
-    assert probe.mma_probe.arm_launches == dict.fromkeys(tensor_core.ARMS, 0)
-    assert probe.stage_probe.arm_launches == dict.fromkeys(stage.ARMS, 0)
+    assert _build.launches == n0
+    for name in ("probe_mma_launch", "probe_mma_wgmma_launch",
+                 "probe_stage_launch", "probe_stage_tma_launch"):
+        assert _build.launches[name] == 0
     with pytest.raises(ValueError):
         probe.mma_probe(A, B, 2, 8, 1, "wmma")
     with pytest.raises(ValueError):
@@ -355,11 +357,11 @@ def test_window_cells_touched_counts_overlap_once():
     lib = torch.zeros(64 * 512).index_add_(0, idx, torch.ones(idx.numel()))
     assert torch.equal(lib.view(64, 512), counts)
     # no windows: nothing to do, and the launch count stays as it was
-    before = probe.window_probe.launches
+    before = _build.launches.copy()
     empty = torch.zeros(0, dtype=torch.int32)
     assert float(probe.window_probe(torch.zeros((64, 512)), empty, 8).sum()) \
         == 0.0
-    assert probe.window_probe.launches == before
+    assert _build.launches == before
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

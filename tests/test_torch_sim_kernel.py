@@ -129,8 +129,8 @@ def test_cpu_step_takes_the_plain_path_and_counts_sim_torch(monkeypatch):
     cfg = _tiny(init="empty")
     state = S.init_scene(cfg, "cpu")
     plain = step._sim_step_plain(state, cfg)
-    for name in ("function", "sim_step_kernel"):
-        monkeypatch.setattr(SK, name, _refuse)
+    monkeypatch.setattr(_build, "launch", _refuse)
+    monkeypatch.setattr(SK, "sim_step_kernel", _refuse)
     monkeypatch.setattr(step, "sim_step_kernel", _refuse)
     trace.reset()
     with profile(activities=[ProfilerActivity.CPU]):
@@ -145,7 +145,7 @@ def test_cpu_step_takes_the_plain_path_and_counts_sim_torch(monkeypatch):
 
 
 def test_kernels_refuse_the_cpu_before_loading(monkeypatch):
-    monkeypatch.setattr(SK, "function", _refuse)
+    monkeypatch.setattr(_build, "launch", _refuse)
     with pytest.raises(ValueError, match="CUDA device"):
         SK.sim_step_kernel(S.init_scene(_tiny(), "cpu"), _tiny())
 
@@ -180,11 +180,11 @@ def _steps(state, cfg, n, offsets=None):
     k = p = state
     spawned = []
     for i in range(n):
-        n0 = SK.sim_step_kernel.launches
+        n0 = _build.launches.copy()
         k = SK.sim_step_kernel(k, cfg, offsets)
-        assert SK.sim_step_kernel.launches == n0 + 3
+        assert _build.launches - n0 == dict.fromkeys(SK._ARGS, 1)
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(SK, "function", _refuse)
+            mp.setattr(_build, "launch", _refuse)
             p = step._sim_step_plain(p, cfg, offsets)
         _equal(k, p, f"step {i}")
         spawned.append(int(k.particles.age.eq(0).sum()))

@@ -11,8 +11,10 @@ counted host syncs equal to the trace's memcpy events under it, and to
 the sync-debug warnings; a frame's bank baked by the noise kernel, once,
 and its light bank swept by the light kernel, once, with no copy) runs
 on the card, as does the ``gpu`` case of the sim (a card frame's
-step made by the sim's kernels: ``sim_kernel`` 3, no ``sim_torch`` and no
-copy under ``volq.sim*``; the reverse on the CPU):
+step made by the sim's kernels: ``sim_scan_launch`` and
+``sim_spawn_launch`` under ``volq.sim.emit``, ``sim_forces_launch`` under
+``volq.sim.forces``, no ``sim_torch`` and no copy under ``volq.sim*``;
+the reverse on the CPU):
 
     python -m pytest --noconftest -m gpu tests/test_torch_trace.py -q
 """
@@ -222,7 +224,8 @@ def test_a_card_frame_bakes_its_bank_with_the_noise_kernel():
     trace.reset()
     with profile(activities=[ProfilerActivity.CPU]):
         state = loop.frame(state, camera, light, cfg)[0]
-    assert trace.per_frame()["volq.bake.volumes"] == {"noise_kernel": 1.0}
+    assert trace.per_frame()["volq.bake.volumes"] == \
+        {"noise_bake_launch": 1.0}
     assert not any(k == "noise_torch" for _, k in trace.counters())
 
 
@@ -236,7 +239,8 @@ def test_a_card_frame_sweeps_its_light_bank_with_the_light_kernel():
     trace.reset()
     with profile(activities=[ProfilerActivity.CPU]):
         loop.frame(state, camera, light, cfg)
-    assert trace.per_frame()["volq.bake.light"] == {"light_kernel": 1.0}
+    assert trace.per_frame()["volq.bake.light"] == \
+        {"light_bake_launch": 1.0}
     assert not any(k == "light_torch" for _, k in trace.counters())
     trace.reset()
 
@@ -268,6 +272,7 @@ def test_a_card_frame_steps_the_sim_with_its_kernels():
     trace.reset()
     with profile(activities=[ProfilerActivity.CPU]):
         loop.frame(state, camera, light, cfg)
-    assert _sim_counts() == {("volq.sim.emit", "sim_kernel"): 2,
-                             ("volq.sim.forces", "sim_kernel"): 1}
+    assert _sim_counts() == {("volq.sim.emit", "sim_scan_launch"): 1,
+                             ("volq.sim.emit", "sim_spawn_launch"): 1,
+                             ("volq.sim.forces", "sim_forces_launch"): 1}
     trace.reset()

@@ -26,12 +26,12 @@ import volq_torch.scene.config as TC
 from volq_torch.convert import (state_from_numpy, camera_from_numpy,
                                 light_from_numpy, light_volumes_from_numpy,
                                 _to_torch)
+from volq_torch import _build
 from volq_torch.engine import loop as TL
 from volq_torch.render import kernel as K
 from volq_torch.render import warp as tw
 
 STATS = ("alive", "rendered", "straddled", "rect_overflow", "shift_clamped")
-KERNELS = (K.warp_march, K.warp_composite, K.warp_images, K.composite_chunk)
 
 
 def c4_flags(cfg, fp32=False, lit=True, **kw):
@@ -256,7 +256,7 @@ def test_kernel_wrappers_on_cpu_run_plain_and_count_nothing(tiny_lit_cfg):
     bank, lbank = tw.bake_slab_banks(tst.volumes, lv, pcfg)
     assert lbank.shape == bank.shape == (4, 8, 8, 16)
     assert lbank.dtype == bank.dtype == torch.bfloat16
-    n0 = [fn.launches for fn in KERNELS]
+    n0 = _build.launches.copy()
     march, comp, _ = tw.fused_inputs(tst.particles, tcam, tli, pcfg, bank,
                                      0, 64, lbank)
     Pm, clamp = K.warp_march(*march)
@@ -283,7 +283,7 @@ def test_kernel_wrappers_on_cpu_run_plain_and_count_nothing(tiny_lit_cfg):
     out_u = K.composite_chunk(legacy.clone(), images, *comp_args)
     assert torch.equal(out_u, K.composite_chunk_plain(legacy.clone(), images,
                                                       *comp_args))
-    assert [fn.launches for fn in KERNELS] == n0
+    assert _build.launches == n0
     # what the kernels do not take raises
     with pytest.raises(ValueError, match="light slab bank"):
         K.warp_march(*march[:7])

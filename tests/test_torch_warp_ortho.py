@@ -28,6 +28,7 @@ from volq.volume.lightbake import bake_light_volumes, dominant_axis
 import volq_torch.scene.config as TC
 from volq_torch.convert import (state_from_numpy, camera_from_numpy,
                                 light_from_numpy)
+from volq_torch import _build
 from volq_torch.engine import loop as TL
 from volq_torch.render import kernel as K, warp as tw
 
@@ -164,7 +165,7 @@ def test_ortho_wrappers_on_cpu_run_plain(tiny_cfg):
         cfg = _port(_cfg(tiny_cfg, warp_fused=fused, warp_march_rect=32))
         state, camera, light = TL.setup(cfg, device="cpu")
         bank = TL.cached_slab_banks(state, None, cfg)[0]
-        n0 = (K.warp_march.launches, K.warp_images.launches)
+        n0 = _build.launches.copy()
         if fused:
             march, _, _ = tw.fused_inputs(state.particles, camera, light,
                                           cfg, bank, 0, 64)
@@ -178,4 +179,4 @@ def test_ortho_wrappers_on_cpu_run_plain(tiny_cfg):
             got, ref = K.warp_images(*args), K.warp_images_plain(*args)
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
         assert float(got[0].float().max()) > 0.0
-        assert (K.warp_march.launches, K.warp_images.launches) == n0
+        assert _build.launches == n0

@@ -5,9 +5,15 @@ with a plain C interface under ``build/volq_torch/`` at the repository
 root, named by the content hash of the source and of every file under
 ``csrc/`` it includes (an edited source or header rebuilds), and loaded
 with ``ctypes``.  ``build_all`` starts one ``nvcc`` per
-source at once.  Nothing here runs at import time.  ``check_tensor``,
-``function``, ``ptr`` and ``stream`` are what every wrapper needs to hand
-tensors to a C function.
+source at once.  Nothing here runs at import time.
+
+``launch`` is the port's one kernel boundary: every C entry point of
+every library is bound, called, checked and counted there, and nowhere
+else.  ``launches`` counts the calls by C function name (always on;
+``launches.clear()`` zeroes it), and under the program's tracing each
+call also counts its name under the innermost open ``volq.*`` span
+(``core/trace.count``).  ``check_tensor``, ``ptr`` and ``stream`` are
+what every wrapper needs to hand tensors to a C function.
 """
 from __future__ import annotations
 
@@ -18,9 +24,12 @@ import re
 import shutil
 import subprocess
 import time
+from collections import Counter
 from pathlib import Path
 
 import torch
+
+from volq_torch.core import trace
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -32,6 +41,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _libs: dict[str, ctypes.CDLL] = {}
+# (library, C function) -> the bound function
+_bound: dict = {}
+# calls of each C function, by name, since the last ``launches.clear()``
+launches: Counter = Counter()
 
 
 def _nvcc() -> str:
@@ -111,14 +124,31 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(lib: str, name: str, argtypes):
+def _bind(lib: str, name: str, argtypes):
     """C function ``name`` of kernel library ``lib`` (built at first
     use), returning an int error code, with its argument types set."""
     fn = getattr(load(lib), name)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
     return fn
+
+
+def launch(lib: str, name: str, argtypes, *args, why=None) -> None:
+    """Call C function ``name`` of kernel library ``lib`` on ``args``,
+    binding it with ``argtypes`` at its first call.  A non-zero return
+    raises RuntimeError naming the function and the code (``why(code)``
+    words it, default "CUDA error <code>"); otherwise the call counts 1
+    in ``launches[name]`` and, under the program's tracing, ``name``
+    under the innermost open span."""
+    fn = _bound.get((lib, name))
+    if fn is None:
+        fn = _bound[lib, name] = _bind(lib, name, argtypes)
+    err = fn(*args)
+    if err:
+        raise RuntimeError(f"{name} failed: "
+                           + (why(err) if why else f"CUDA error {err}"))
+    launches[name] += 1
+    trace.count(name)
 
 
 def check_tensor(t: torch.Tensor, name: str, dtypes, shape=None,

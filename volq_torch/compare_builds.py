@@ -108,6 +108,12 @@ def march_inputs(cfg):
     return march
 
 
+def _use(lib: ctypes.CDLL) -> None:
+    """Make ``lib`` the library A's next launches call (rebinding them)."""
+    _build._libs[NAME] = lib
+    _build._bound.clear()
+
+
 def compare(libs: dict, card: str) -> dict:
     """{path: {label: [ms a round]}}, printed as it goes."""
     from volq_torch.render import kernel as K
@@ -117,7 +123,7 @@ def compare(libs: dict, card: str) -> dict:
         march = march_inputs(cfg)
         ref = None
         for label in labels:
-            _build._libs[NAME] = libs[label]
+            _use(libs[label])
             got = K.warp_march(*march)
             if ref is None:
                 ref = got
@@ -126,7 +132,7 @@ def compare(libs: dict, card: str) -> dict:
         ms = {label: [] for label in labels}
         for r in range(ROUNDS):
             for label in labels if r % 2 == 0 else labels[::-1]:
-                _build._libs[NAME] = libs[label]
+                _use(libs[label])
                 ms[label].append(_graph_ms(lambda: K.warp_march(*march)))
         for label in labels:
             v = ms[label]
@@ -136,7 +142,7 @@ def compare(libs: dict, card: str) -> dict:
         out[tag] = ms
         del march
         torch.cuda.empty_cache()
-    _build._libs[NAME] = libs["tree"]
+    _use(libs["tree"])
     return out
 
 

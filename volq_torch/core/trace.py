@@ -28,13 +28,14 @@ clears them.  Spans are named ``volq.<layer>[.<part>]``:
       volq.render.finish      the canvas over the background
 
 The counters ``h2d`` and ``d2h`` count the blocking copies between host
-and card (``core/device.h2d`` and ``d2h``); ``noise_kernel`` and
-``noise_torch`` count the bakes of a noise bank by its CUDA kernel and by
-its plain version (``volume/bake.py``), so a frame shows which path its
-bank took; ``sim_kernel`` counts each launch of the sim's kernels
-(``sim/kernel.py``, three a step) and ``sim_torch`` each plain sim step;
-``light_kernel`` and ``light_torch`` count the sweeps of a light bank by
-its CUDA kernel and by its plain version (``volume/lightbake.py``).
+and card (``core/device.h2d`` and ``d2h``).  Every kernel launch counts
+under its C function's name (``_build.launch``: ``sim_scan_launch``,
+``sim_spawn_launch``, ``sim_forces_launch``, ``noise_bake_launch``,
+``light_bake_launch``, ``warp_march_launch``, ``warp_composite_launch``,
+...); ``sim_torch``, ``noise_torch`` and ``light_torch`` count the calls
+of the sim step's, the noise bank's and the light bank's plain versions
+(``sim/step.py``, ``volume/bake.py``, ``volume/lightbake.py``), so a
+frame shows which path each took.
 """
 from __future__ import annotations
 

@@ -16,6 +16,7 @@ import time
 
 import torch
 
+from volq_torch import _build
 from volq_torch.core import trace
 from volq_torch.core.device import resolve_device
 from volq_torch.core.types import SceneState
@@ -221,10 +222,6 @@ def _time_rank(rank, mesh, device, cfg, n_frames, warmup, fb, windows):
     return spf, last, times
 
 
-# the kernel wrappers whose launches a rank of run_sharded reports
-_KERNELS = ("warp_march", "warp_composite", "warp_images", "composite_chunk")
-
-
 def _turns(whole, shard, camera, light, cfg, mesh, n_frames, fb, warmup,
            turns):
     """This rank's unsharded loop (on the whole state) and sharded loop
@@ -247,7 +244,6 @@ def _turns(whole, shard, camera, light, cfg, mesh, n_frames, fb, warmup,
 def _run_rank(rank, mesh, device, jobs, timing):
     from volq_torch.convert import state_to_numpy
     from volq_torch.dist import gather_state, shard_state, sharded_frame_fn
-    from volq_torch.render import kernel as K
     records = []
     for cfg, n_frames, per_call in jobs:
         whole, camera, light = setup(cfg, device)
@@ -260,11 +256,10 @@ def _run_rank(rank, mesh, device, jobs, timing):
                 + payload.numel() * payload.element_size()
 
         fr = sharded_frame_fn(cfg, mesh, per_call, on_send=on_send)
-        for fn in _KERNELS:
-            getattr(K, fn).launches = 0
+        _build.launches.clear()
         for _ in range(n_frames // per_call):
             state, image, stats = fr(state, camera, light)
-        launches = {fn: getattr(K, fn).launches for fn in _KERNELS}
+        launches = _build.launches.copy()
         state = gather_state(state)
         rec = dict(launches=launches, wire=wire)
         if timing is not None:
@@ -284,7 +279,8 @@ def run_sharded(mesh, jobs, timing=None) -> list:
     (it must divide ``n_frames``).  One set of rank processes runs every
     job.  Returns rank 0's record of each job: ``state`` (the whole
     final state, numpy), ``image`` (the last frame, numpy), ``stats``,
-    ``launches`` (rank 0's kernel launches over the frames) and ``wire``
+    ``launches`` (rank 0's kernel launches over the frames, a Counter by
+    C function name as ``_build.launches`` keys them) and ``wire``
     (the bytes rank 0 handed to the binary swap's wire, by dtype).
     ``timing`` = (n_frames, fb, warmup, turns) then times, on each
     rank, the unsharded loop of the job's initial state and the sharded

@@ -17,9 +17,12 @@ redesign can start from the card's own numbers.
   16-byte ``cp.async`` or by TMA loads and stores at element offsets.
 
 Each wrapper launches its kernel for tensors on the card (raising if it
-cannot), runs its plain PyTorch version only for tensors on the CPU, and
-counts its launches in ``launches``.  ``python -m volq_torch.probe`` runs
-the timed sweeps on the card.
+cannot) and runs its plain PyTorch version only for tensors on the CPU;
+``_build.launches`` counts the launches by arm, each arm being its own C
+function (``probe_mma_launch`` / ``probe_mma_wgmma_launch``,
+``probe_stage_launch`` / ``probe_stage_tma_launch``,
+``probe_window_launch`` / ``probe_window_tma_launch``).
+``python -m volq_torch.probe`` runs the timed sweeps on the card.
 """
 from __future__ import annotations
 

@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from volq_torch import _build
 from volq_torch._build import check_tensor, ptr, stream
 
 MAX_K, MAX_SMALL, MAX_CONST = 16, 4, 4
@@ -114,8 +115,6 @@ def stage_probe(xs, small, const, G: int, arm: str = "tma",
         raise ValueError("the cp_async arm's ring is two slots deep")
     if dev.type != "cuda":
         return stage_probe_plain(xs, small, const, G)
-    from volq_torch._build import load
-    lib = load("probe_stage")
     p = StageParams(K=len(xs), n_small=len(small), n_const=len(const), M=M,
                     G=G)
     for field, ts in (("xs", xs), ("small", small), ("cst", const)):
@@ -124,42 +123,26 @@ def stage_probe(xs, small, const, G: int, arm: str = "tma",
             arr[k] = t.data_ptr()
     out = torch.empty((8, 128), dtype=torch.float32, device=dev)
     if arm == "cp_async":
-        fn = lib.probe_stage_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [StageParams, ctypes.c_void_p, ctypes.c_void_p]
-        err = fn(p, ptr(out), stream(dev))
+        _build.launch("probe_stage", "probe_stage_launch",
+                      [StageParams, ctypes.c_void_p, ctypes.c_void_p], p,
+                      ptr(out), stream(dev))
     else:
-        fn = lib.probe_stage_tma_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [StageParams, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
-        err = fn(p, plan.depth, plan.slot, ptr(out), stream(dev))
-    if err:
-        raise RuntimeError(f"probe_stage launch failed: CUDA error {err}")
-    stage_probe.launches += 1
-    stage_probe.arm_launches[arm] += 1
+        _build.launch("probe_stage", "probe_stage_tma_launch",
+                      [StageParams, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p],
+                      p, plan.depth, plan.slot, ptr(out), stream(dev))
     return out
-
-
-stage_probe.launches = 0
-stage_probe.arm_launches = dict.fromkeys(ARMS, 0)
 
 
 def fadd_clocks(device="cuda") -> float:
     """SM clocks of one fp32 add that waits on the previous one's result,
     timed on the card over a chain of them (``fadd_chain_kernel``): the
     step of the chain that bounds ``stage_probe``."""
-    from volq_torch._build import load
-    lib = load("probe_stage")
-    fn = lib.fadd_chain_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3
     dev = torch.device(device)
     clocks = torch.zeros(2, dtype=torch.int64, device=dev)
     sink = torch.empty(1, dtype=torch.float32, device=dev)
-    err = fn(ptr(clocks), ptr(sink), stream(dev))
-    if err:
-        raise RuntimeError(f"fadd_chain launch failed: CUDA error {err}")
+    _build.launch("probe_stage", "fadd_chain_launch", [ctypes.c_void_p] * 3,
+                  ptr(clocks), ptr(sink), stream(dev))
     c, n = clocks.tolist()
     return c / n
 

@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from volq_torch import _build
 from volq_torch._build import check_tensor, ptr, stream
 
 # shared memory a block can use on the card (bytes)
@@ -252,45 +253,37 @@ def mma_probe(A, B, G: int, nacc: int = 1, blocks: int = 1,
         raise ValueError("the wgmma arm's TMA needs A and B 16-byte aligned")
     if dev.type != "cuda":
         return mma_probe_plain(A, B, G, blocks)
-    from volq_torch._build import load
-    lib = load("probe_mma")
+    V, I = ctypes.c_void_p, ctypes.c_int
     if arm == "mma_sync":
-        fn = lib.probe_mma_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [MmaParams] \
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         p = MmaParams(R=R, M=M, K=K, N=N, G=G, Mp=plan.Mp, KC=plan.KC,
                       resident=int(plan.resident), lda=plan.KC + PAD,
                       ldb=N + PAD, WGM=plan.WGM, WGN=plan.WGN)
         # the kernel writes whole 16-row tiles: the pad rows come back too
         out = torch.empty((blocks, plan.Mp, N), dtype=torch.float32,
                           device=dev)
-        err = fn(ptr(A), ptr(B), ptr(out), p, plan.WM, plan.WN, plan.nacc,
-                 blocks, plan.smem, stream(dev))
+        _build.launch("probe_mma", "probe_mma_launch",
+                      [V] * 3 + [MmaParams] + [I] * 5 + [V], ptr(A), ptr(B),
+                      ptr(out), p, plan.WM, plan.WN, plan.nacc, blocks,
+                      plan.smem, stream(dev))
     else:
-        fn = lib.probe_mma_wgmma_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [WgmmaParams] \
-            + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         p = WgmmaParams(R=R, M=M, K=K, N=N, G=G, **plan.params)
         out = torch.empty((blocks, M, N), dtype=torch.float32, device=dev)
-        err = fn(ptr(A), ptr(B), ptr(out), p, plan.n, plan.tpw, plan.nacc,
-                 int(plan.trans), plan.rowsA, blocks, plan.smem, stream(dev))
-    if err == -1:
-        raise RuntimeError("probe_mma: the driver gives no "
-                           "cuTensorMapEncodeTiled")
-    if err <= -1000:
-        raise RuntimeError(f"probe_mma: tensor map refused (CUresult "
-                           f"{-1000 - err})")
-    if err:
-        raise RuntimeError(f"probe_mma launch failed: CUDA error {err}")
-    mma_probe.launches += 1
-    mma_probe.arm_launches[arm] += 1
+        _build.launch("probe_mma", "probe_mma_wgmma_launch",
+                      [V] * 3 + [WgmmaParams] + [I] * 7 + [V], ptr(A),
+                      ptr(B), ptr(out), p, plan.n, plan.tpw, plan.nacc,
+                      int(plan.trans), plan.rowsA, blocks, plan.smem,
+                      stream(dev), why=_why)
     return out[:, :M]
 
 
-mma_probe.launches = 0
-mma_probe.arm_launches = dict.fromkeys(ARMS, 0)
+def _why(err: int) -> str:
+    """The wgmma launcher's own codes: -1, no cuTensorMapEncodeTiled from
+    the driver; <= -1000, a tensor map refused (CUresult -1000 - code)."""
+    if err == -1:
+        return "the driver gives no cuTensorMapEncodeTiled"
+    if err <= -1000:
+        return f"tensor map refused (CUresult {-1000 - err})"
+    return f"CUDA error {err}"
 
 
 def make_inputs(R: int, M: int, K: int, N: int, device, seed: int = 0):

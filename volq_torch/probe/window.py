@@ -18,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from volq_torch import _build
 from volq_torch._build import check_tensor, ptr, stream
 
 H, W = 1088, 2048        # the reference's canvas
@@ -156,8 +157,6 @@ def window_probe(canvas, offsets, align: int, check_offsets: bool = True,
         window_probe.blocks = _launch(arm, canvas, offsets.data_ptr() + 8 * i0,
                                       min(MAX_LIST, n - i0), h, w, stream(dev),
                                       widen)
-        window_probe.launches += 1
-        window_probe.arm_launches[arm] += 1
     return canvas
 
 
@@ -166,27 +165,25 @@ def _launch(arm, canvas, off_ptr, n, h, w, st, widen=0) -> int:
     number of blocks the launcher gave the launch.  ``widen`` (tma): 1
     moves a window whose x is not a multiple of 4 as an [8, 132] box from
     x & ~3; 0 moves every window as an [8, 128] box at its x."""
-    from volq_torch._build import load
-    lib = load("probe_window")
     args = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
     if arm == "tma":
-        fn, args, extra = (lib.probe_window_tma_launch,
-                           args + [ctypes.c_int], (widen,))
+        name, args, extra = ("probe_window_tma_launch",
+                             args + [ctypes.c_int], (widen,))
     else:
-        fn, extra = lib.probe_window_launch, ()
-    fn.restype = ctypes.c_int
-    fn.argtypes = args + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        name, extra = "probe_window_launch", ()
     blocks = ctypes.c_int(0)
-    err = fn(ptr(canvas), off_ptr, n, h, w, *extra, ctypes.byref(blocks), st)
-    if err:
-        raise RuntimeError(f"probe_window {arm} launch failed: "
-                           + (f"CUDA error {err}" if err > 0 else
-                              f"tensor map refused ({err})"))
+    _build.launch("probe_window", name,
+                  args + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
+                  ptr(canvas), off_ptr, n, h, w, *extra, ctypes.byref(blocks),
+                  st, why=_why)
     return blocks.value
 
 
-window_probe.launches = 0
-window_probe.arm_launches = dict.fromkeys(ARMS, 0)
+def _why(err: int) -> str:
+    """A launcher's code: a CUDA error, or a tensor map refused (< 0)."""
+    return f"CUDA error {err}" if err > 0 else f"tensor map refused ({err})"
+
+
 # the grid of the last launch, as its launcher reports it
 window_probe.blocks = 0
 
@@ -218,16 +215,11 @@ def rt_clocks(device="cuda") -> float:
     the add, the store to the same address that the next load reads --
     timed on the card over a chain of them (``window_rt_kernel``): the
     step of the chain that bounds ``window_probe``."""
-    from volq_torch._build import load
-    fn = load("probe_window").window_rt_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3
     dev = torch.device(device)
     buf = torch.zeros(4, dtype=torch.float32, device=dev)
     clocks = torch.zeros(2, dtype=torch.int64, device=dev)
-    err = fn(ptr(buf), ptr(clocks), stream(dev))
-    if err:
-        raise RuntimeError(f"window_rt launch failed: CUDA error {err}")
+    _build.launch("probe_window", "window_rt_launch", [ctypes.c_void_p] * 3,
+                  ptr(buf), ptr(clocks), stream(dev))
     c, n = clocks.tolist()
     return c / n
 

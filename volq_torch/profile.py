@@ -17,9 +17,9 @@ prints, with the card's name and power limit:
   while it was the innermost open span, and its host syncs a frame: the
   program's ``h2d`` and ``d2h`` counters beside the trace's host-to-card
   and card-to-host memcpy events whose runtime call it holds, and its
-  other counters a frame (``noise_kernel`` / ``noise_torch``: the path
-  the volume bank's bake took; ``sim_kernel`` / ``sim_torch``: the sim
-  step's; ``light_kernel`` / ``light_torch``: the light bank's sweep);
+  other counters a frame: each kernel launch by its C function's name
+  (``_build.launch``), and ``noise_torch`` / ``sim_torch`` /
+  ``light_torch`` each call of a plain version;
 - the same frames again under torch.cuda's sync-debug mode: its warnings
   against the counters' total.
 

@@ -47,8 +47,11 @@ if it cannot) and runs its plain PyTorch version, ``*_plain``, only for
 tensors on the CPU.  The plain versions repeat the kernels' arithmetic
 op for op (same rounding points, same fp32 operation order), so on the
 card kernels B and D are bit-equal to their plain versions and kernels
-A and C equal to them (max abs err 0).  ``launches`` on each wrapper counts
-kernel launches.
+A and C equal to them (max abs err 0).  Each launch goes through
+``_build.launch``, which counts it by its C function's name
+(``_build.launches``: ``warp_march_launch``, ``warp_composite_fill``,
+``warp_composite_launch``, ``warp_images_launch``, ``composite_chunk_fill``,
+``composite_chunk_launch``).
 """
 from __future__ import annotations
 
@@ -59,8 +62,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from volq_torch._build import (check_tensor as _check,
-                               function as _kernel_fn, ptr as _ptr,
+from volq_torch import _build
+from volq_torch._build import (check_tensor as _check, ptr as _ptr,
                                stream as _stream)
 from volq_torch.scene.config import SceneConfig
 
@@ -675,7 +678,6 @@ def warp_march(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams,
     if dev.type != "cuda":
         return warp_march_plain(bank, vidx, pgeom, rx_u, ry_w, camf, p,
                                 lbank)
-    fn = _kernel_fn("warp_march", "warp_march_launch", _MARCH_ARGS)
     if plan is None:
         aligned = all(t.data_ptr() % 16 == 0 for t in (bank, lbank)
                       if t is not None)
@@ -684,16 +686,11 @@ def warp_march(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams,
     Pm = torch.empty((N, 2, RM, RM) if p.lit else (N, RM, RM),
                      dtype=torch.float32, device=dev)
     clamp = torch.zeros((1,), dtype=torch.int32, device=dev)
-    err = fn(_ptr(bank), _ptr(lbank), int(bank.dtype == torch.bfloat16),
-             _ptr(vidx), _ptr(pgeom), _ptr(rx_u), _ptr(ry_w), _ptr(camf),
-             _ptr(Pm), _ptr(clamp), p, plan, _stream(dev))
-    if err:
-        raise RuntimeError(f"warp_march launch failed: CUDA error {err}")
-    warp_march.launches += 1
+    _build.launch("warp_march", "warp_march_launch", _MARCH_ARGS,
+                  _ptr(bank), _ptr(lbank), int(bank.dtype == torch.bfloat16),
+                  _ptr(vidx), _ptr(pgeom), _ptr(rx_u), _ptr(ry_w),
+                  _ptr(camf), _ptr(Pm), _ptr(clamp), p, plan, _stream(dev))
     return Pm, clamp
-
-
-warp_march.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -847,16 +844,10 @@ def tile_fill(box, valid, p: CompositeParams,
     if dev.type != "cuda":
         return _slots_plain(*tile_lists_plain(box, valid, p.Hc, p.Wc), plan)
     scratch = _list_scratch(plan, dev)
-    err = _kernel_fn("warp_composite", "warp_composite_fill",
-                     _COMPOSITE_ARGS["warp_composite_fill"])(
-        _ptr(box), _ptr(valid), p, plan, _ptr(scratch), _stream(dev))
-    if err:
-        raise RuntimeError(f"tile fill launch failed: CUDA error {err}")
-    tile_fill.launches += 1
+    _build.launch("warp_composite", "warp_composite_fill",
+                  _COMPOSITE_ARGS["warp_composite_fill"], _ptr(box),
+                  _ptr(valid), p, plan, _ptr(scratch), _stream(dev))
     return scratch[:nt], scratch[nt:nt * (1 + plan.capt)].view(nt, plan.capt)
-
-
-tile_fill.launches = 0
 
 
 def _taps(g, n: int, pdt):
@@ -1007,19 +998,13 @@ def warp_composite(canvas, Pm, ayf, axf, box, cc, valid,
     if plan is None:
         plan = composite_plan(p)
     scratch = _list_scratch(plan, dev)
-    err = _kernel_fn("warp_composite", "warp_composite_launch",
-                     _COMPOSITE_ARGS["warp_composite_launch"])(
-        _ptr(canvas), int(canvas.dtype == torch.bfloat16), _ptr(Pm),
-        int(pdt == torch.bfloat16), _ptr(ayf), _ptr(axf), _ptr(box),
-        _ptr(cc), _ptr(cc2), _ptr(valid), p, plan, _ptr(scratch),
-        _stream(dev))
-    if err:
-        raise RuntimeError(f"warp_composite launch failed: CUDA error {err}")
-    warp_composite.launches += 1
+    _build.launch("warp_composite", "warp_composite_launch",
+                  _COMPOSITE_ARGS["warp_composite_launch"], _ptr(canvas),
+                  int(canvas.dtype == torch.bfloat16), _ptr(Pm),
+                  int(pdt == torch.bfloat16), _ptr(ayf), _ptr(axf),
+                  _ptr(box), _ptr(cc), _ptr(cc2), _ptr(valid), p, plan,
+                  _ptr(scratch), _stream(dev))
     return canvas
-
-
-warp_composite.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -1063,24 +1048,18 @@ def warp_images(bank, vidx, pgeom, rx_u, ry_w, camf, p: MarchParams, alb,
     if dev.type != "cuda":
         return warp_images_plain(bank, vidx, pgeom, rx_u, ry_w, camf, p,
                                  alb, lightf, lbank)
-    fn = _kernel_fn("warp_images", "warp_images_launch", _IMAGES_ARGS)
     if plan is None:
         aligned = all(t.data_ptr() % 16 == 0 for t in (bank, lbank)
                       if t is not None)
         plan = images_plan(p, bank.element_size(), aligned)
     images = torch.empty((p.N, 4, p.RP, p.RP), dtype=bank.dtype, device=dev)
     clamp = torch.zeros((1,), dtype=torch.int32, device=dev)
-    err = fn(_ptr(bank), _ptr(lbank), int(bank.dtype == torch.bfloat16),
-             _ptr(vidx), _ptr(pgeom), _ptr(rx_u), _ptr(ry_w), _ptr(camf),
-             _ptr(alb), _ptr(lightf), _ptr(images), _ptr(clamp), p, plan,
-             _stream(dev))
-    if err:
-        raise RuntimeError(f"warp_images launch failed: CUDA error {err}")
-    warp_images.launches += 1
+    _build.launch("warp_images", "warp_images_launch", _IMAGES_ARGS,
+                  _ptr(bank), _ptr(lbank), int(bank.dtype == torch.bfloat16),
+                  _ptr(vidx), _ptr(pgeom), _ptr(rx_u), _ptr(ry_w),
+                  _ptr(camf), _ptr(alb), _ptr(lightf), _ptr(images),
+                  _ptr(clamp), p, plan, _stream(dev))
     return images, clamp
-
-
-warp_images.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -1155,18 +1134,11 @@ def chunk_fill(oy, ox, order, p: ChunkParams,
     if dev.type != "cuda":
         return _slots_plain(*chunk_lists_plain(oy, ox, order, p), plan)
     scratch = _list_scratch(plan, dev)
-    err = _kernel_fn("composite_chunk", "composite_chunk_fill",
-                     _CHUNK_ARGS["composite_chunk_fill"])(
-        _ptr(oy), _ptr(ox), _ptr(order), p, plan, _ptr(scratch),
-        _stream(dev))
-    if err:
-        raise RuntimeError(f"chunk fill launch failed: CUDA error {err}")
-    chunk_fill.launches += 1
+    _build.launch("composite_chunk", "composite_chunk_fill",
+                  _CHUNK_ARGS["composite_chunk_fill"], _ptr(oy), _ptr(ox),
+                  _ptr(order), p, plan, _ptr(scratch), _stream(dev))
     nt = plan.ntx * plan.nty
     return scratch[:nt], scratch[nt:nt * (1 + plan.capt)].view(nt, plan.capt)
-
-
-chunk_fill.launches = 0
 
 
 def composite_chunk_plain(canvas, images, oy, ox, order, p: ChunkParams):
@@ -1234,15 +1206,9 @@ def composite_chunk(canvas, images, oy, ox, order, p: ChunkParams,
     if plan is None:
         plan = chunk_plan(p)
     scratch = _list_scratch(plan, dev)
-    err = _kernel_fn("composite_chunk", "composite_chunk_launch",
-                     _CHUNK_ARGS["composite_chunk_launch"])(
-        _ptr(canvas), int(canvas.dtype == torch.bfloat16), _ptr(images),
-        int(images.dtype == torch.bfloat16), _ptr(oy), _ptr(ox),
-        _ptr(order), p, plan, _ptr(scratch), _stream(dev))
-    if err:
-        raise RuntimeError(f"composite_chunk launch failed: CUDA error {err}")
-    composite_chunk.launches += 1
+    _build.launch("composite_chunk", "composite_chunk_launch",
+                  _CHUNK_ARGS["composite_chunk_launch"], _ptr(canvas),
+                  int(canvas.dtype == torch.bfloat16), _ptr(images),
+                  int(images.dtype == torch.bfloat16), _ptr(oy), _ptr(ox),
+                  _ptr(order), p, plan, _ptr(scratch), _stream(dev))
     return canvas
-
-
-composite_chunk.launches = 0

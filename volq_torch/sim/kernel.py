@@ -10,7 +10,7 @@ first two lie in the ``volq.sim.emit`` span, the third in
 ``volq.sim.forces``.  The step reads frame, time, the carry and the base
 key where they lie on the card, and takes every constant as a kernel
 argument (``SimParams``), so it makes no copy between host and card.
-Under the program's tracing each launch counts ``sim_kernel``.
+Each launch counts under its C function's name (``_build.launch``).
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ import functools
 
 import torch
 
-from volq_torch._build import check_tensor, function, ptr, stream
+from volq_torch import _build
+from volq_torch._build import check_tensor, ptr, stream
 from volq_torch.core import trace
 from volq_torch.core.types import Particles, SceneState
 from volq_torch.scene.config import EmitterConfig, ForcesConfig
@@ -100,13 +101,6 @@ _ARGS = {
 }
 
 
-def _launch(name: str, *args) -> None:
-    err = function("sim_step", name, _ARGS[name])(*args)
-    if err:
-        raise RuntimeError(f"{name} failed: CUDA error {err}")
-    trace.count("sim_kernel")
-
-
 def _empty(n: int, device) -> Particles:
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=device)
@@ -162,8 +156,9 @@ def sim_step_kernel(state: SceneState, cfg, offsets=None) -> SceneState:
         incl = torch.empty((n,), dtype=torch.int32, device=dev)
         dead = None if offsets is None else \
             torch.empty((), dtype=torch.int64, device=dev)
-        _launch("sim_scan_launch", ptr(ins[2]), ptr(ins[3]), n, par.dt,
-                ptr(incl), ptr(dead), st)
+        _build.launch("sim_step", "sim_scan_launch", _ARGS["sim_scan_launch"],
+                      ptr(ins[2]), ptr(ins[3]), n, par.dt, ptr(incl),
+                      ptr(dead), st)
         slot_offset, rank_offset = (0, 0) if offsets is None \
             else offsets(n, dead)
         if torch.is_tensor(rank_offset):
@@ -173,14 +168,12 @@ def sim_step_kernel(state: SceneState, cfg, offsets=None) -> SceneState:
                              f"or 0, not {rank_offset!r}")
         else:
             rank_offset = None
-        _launch("sim_spawn_launch", t, ptr(incl), ptr(rank_offset),
-                slot_offset, n, par, st)
+        _build.launch("sim_step", "sim_spawn_launch",
+                      _ARGS["sim_spawn_launch"], t, ptr(incl),
+                      ptr(rank_offset), slot_offset, n, par, st)
     with trace.span("volq.sim.forces"):
-        _launch("sim_forces_launch", t, n, par, st)
-    sim_step_kernel.launches += 3
+        _build.launch("sim_step", "sim_forces_launch",
+                      _ARGS["sim_forces_launch"], t, n, par, st)
     return SceneState(particles=out, volumes=state.volumes, frame=frame,
                       spawn_carry=carry, time=time, base_key=state.base_key)
-
-
-sim_step_kernel.launches = 0
 

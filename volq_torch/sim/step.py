@@ -12,8 +12,9 @@ Step order of record:
 On a card the step is three launches of ``csrc/sim_step.cu``
 (``sim/kernel.sim_step_kernel``), bit-equal to the plain version
 ``_sim_step_plain`` (torch ops), which the CPU takes.  Under the
-program's tracing a plain step counts ``sim_torch`` and each launch
-``sim_kernel``.
+program's tracing a plain step counts ``sim_torch`` and each launch its
+C function's name (``sim_scan_launch``, ``sim_spawn_launch``,
+``sim_forces_launch``).
 
 With a process ``group`` the particle slots are sharded over its ranks
 (``dist/sharded.py``): the emission rank is made global with an

@@ -12,9 +12,9 @@ registers, bit-equal to the plain version; it stores bf16, and a bank of
 another dtype on the card is refused.  A bank on the CPU takes the plain
 version (``_bake_plain``): torch ops over the lattice, entries baked in
 chunks so peak memory stays bounded (the reference maps over entries
-with ``lax.map``); its result is independent of the chunk size.  Under the program's tracing each
-kernel launch counts ``noise_kernel`` and each plain bake
-``noise_torch``.
+with ``lax.map``); its result is independent of the chunk size.  The
+kernel's launch counts as ``noise_bake_launch`` (``_build.launch``) and,
+under the program's tracing, each plain bake as ``noise_torch``.
 """
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ import ctypes
 
 import torch
 
-from volq_torch._build import check_tensor, function, ptr, stream
+from volq_torch import _build
+from volq_torch._build import check_tensor, ptr, stream
 from volq_torch.core import trace
 from volq_torch.core.device import h2d, resolve_device
 
@@ -171,17 +172,10 @@ def noise_bake(p: NoiseParams, device, ids=None, t=None):
         if x is not None and x.device != out.device:
             raise ValueError(f"noise_bake: {name} on {x.device}, not on "
                              f"the bank's {out.device}")
-    err = function("noise_bake", "noise_bake_launch", _NOISE_ARGS)(
-        ptr(out), ptr(ids), ptr(t), 3 if t is None else 4, p,
-        stream(out.device))
-    if err:
-        raise RuntimeError(f"noise_bake launch failed: CUDA error {err}")
-    noise_bake.launches += 1
-    trace.count("noise_kernel")
+    _build.launch("noise_bake", "noise_bake_launch", _NOISE_ARGS, ptr(out),
+                  ptr(ids), ptr(t), 3 if t is None else 4, p,
+                  stream(out.device))
     return out
-
-
-noise_bake.launches = 0
 
 
 def _on_card(device, dtype) -> bool:

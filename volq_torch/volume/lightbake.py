@@ -20,8 +20,8 @@ A bank on the card is swept by one CUDA kernel (``light_bake``,
 version; it reads the light's direction on the card and takes bf16 and
 fp32 banks of V <= 128.  A bank on the CPU takes the plain version
 (``_bake_light_plain``): the slices walked from Python as torch ops.
-Under the program's tracing each kernel launch counts ``light_kernel``
-and each plain sweep ``light_torch``.
+The kernel's launch counts as ``light_bake_launch`` (``_build.launch``)
+and, under the program's tracing, each plain sweep as ``light_torch``.
 """
 from __future__ import annotations
 
@@ -29,7 +29,8 @@ import ctypes
 
 import torch
 
-from volq_torch._build import check_tensor, function, ptr, stream
+from volq_torch import _build
+from volq_torch._build import check_tensor, ptr, stream
 from volq_torch.core import trace
 from volq_torch.core.device import d2h
 
@@ -148,17 +149,11 @@ def light_bake(volumes, light_dir, axis: int = 2):
         raise ValueError(f"light_bake runs on a CUDA device, not {dev} (the "
                          "CPU takes _bake_light_plain)")
     out = torch.empty((M, V, V, V), dtype=torch.float32, device=dev)
-    err = function("light_bake", "light_bake_launch", _LIGHT_ARGS)(
-        ptr(volumes), ptr(out), ptr(light_dir), M, V, axis,
-        int(volumes.dtype == torch.bfloat16), MIN_LAXIS, stream(dev))
-    if err:
-        raise RuntimeError(f"light_bake launch failed: CUDA error {err}")
-    light_bake.launches += 1
-    trace.count("light_kernel")
+    _build.launch("light_bake", "light_bake_launch", _LIGHT_ARGS,
+                  ptr(volumes), ptr(out), ptr(light_dir), M, V, axis,
+                  int(volumes.dtype == torch.bfloat16), MIN_LAXIS,
+                  stream(dev))
     return out
-
-
-light_bake.launches = 0
 
 
 def bake_light_volumes(volumes, light_dir, axis: int = 2):

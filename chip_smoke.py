@@ -142,7 +142,11 @@ final result line):
      noise kernel 1 and the light kernel 1 per frame: every frame
      re-bakes the bank and its light bank; the other configs' drives 0
      noise- and light-kernel launches, their banks baked at set-up;
-     every drive 3 sim-kernel launches a frame), check the image,
+     every drive 3 sim-kernel launches a frame; c5's frames under the
+     profiler's CPU tracing, so that the program's counters count: no
+     blocking copy, h2d + d2h 0, and const_miss 0 -- the configuration's
+     constants were made once by the frames and checks before and come
+     from core/device.const's cache), check the image,
      time the kernels and
      the loop: the one timed walk of B's plain version holds B on every
      particle of a c5 frame;
@@ -965,20 +969,42 @@ def check_image(tag, image, stats, cfg):
     assert int(stats["rendered"][-1]) > 0
 
 
-def drive(tag, state, camera, light, cfg, lv, sb, n, expect):
+def drive(tag, state, camera, light, cfg, lv, sb, n, expect,
+          no_copies=False):
     """frames(n) from zeroed launch counters; the counts of the warp
     kernels, the noise kernel and the light kernel must equal ``expect``
     (per frame; 0 where absent: a static bank and its light bank are
-    baked at set-up) times n, the sim kernels' SIM_LAUNCHES times n.  Returns (state, image, counts)."""
+    baked at set-up) times n, the sim kernels' SIM_LAUNCHES times n.
+    ``no_copies``: the frames run under the profiler's CPU tracing (the
+    program's counters count) and must make no blocking copy (``h2d`` +
+    ``d2h`` 0) and no new constant (``const_miss`` 0).  Returns (state,
+    image, counts)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from volq_torch import _build
+    from volq_torch.core import trace
     from volq_torch.engine import loop
     _build.launches.clear()
+    trace.reset()
     t0 = time.perf_counter()
-    state, image, stats = loop.frames(state, camera, light, cfg, lv, sb, n=n)
+    with profile(activities=[ProfilerActivity.CPU]) if no_copies \
+            else contextlib.nullcontext():
+        state, image, stats = loop.frames(state, camera, light, cfg, lv, sb,
+                                          n=n)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = _counts()
+    if no_copies:
+        got = {}
+        for (_, k), v in trace.counters().items():
+            got[k] = got.get(k, 0) + v
+        copies = got.get("h2d", 0) + got.get("d2h", 0)
+        print(f"[main] {tag} {n} frames: h2d + d2h {copies}, const_miss "
+              f"{got.get('const_miss', 0)}, const_hit "
+              f"{got.get('const_hit', 0)}")
+        assert copies == 0 and not got.get("const_miss"), \
+            f"{tag}: {copies} blocking copies, " \
+            f"{got.get('const_miss', 0)} new constants in {n} frames"
     print(f"[main] {tag} frames(n={n}) in {dt:.3f} s, launches {counts}, "
           f"stats of the last frame "
           f"{ {k: int(v[-1]) for k, v in stats.items()} }")
@@ -2171,7 +2197,8 @@ def main() -> int:
     # noise-kernel and one light-kernel launch each
     state, _, c5_counts = drive("c5", state, camera, light, cfg, None, None,
                                 N_FRAMES_C5,
-                                dict(fused, noise_bake=1, light_bake=1))
+                                dict(fused, noise_bake=1, light_bake=1),
+                                no_copies=True)
     c5_times = time_fused("c5", state, camera, light, cfg, None, card, errs,
                           sweep=True)
     time_loop("c5", (state, camera, light, None, None), cfg, card,

@@ -5,8 +5,10 @@ nothing; under a profiler the ``volq.*`` spans of a c5-like frame (the
 animated 4-D bank, the light and slab banks re-baked, the fused warp
 render on a coarse interleaved canvas) nest as the module names them, the
 counters key by the innermost span, ``core/device``'s ``h2d`` / ``d2h``
-count off the CPU only, and the frames are bit-identical with and without
-the profiler.  Imports neither JAX nor volq; the ``gpu`` case (each span's
+count off the CPU only, ``const`` serves a configuration constant from
+its cache after one counted copy (and raises once it was written in
+place), and the frames are bit-identical with and without the profiler
+and with the constants' cache warm or cleared.  Imports neither JAX nor volq; the ``gpu`` case (each span's
 counted host syncs equal to the trace's memcpy events under it, and to
 the sync-debug warnings; a frame's bank baked by the noise kernel, once,
 and its light bank swept by the light kernel, once, with no copy) runs
@@ -14,7 +16,9 @@ on the card, as does the ``gpu`` case of the sim (a card frame's
 step made by the sim's kernels: ``sim_scan_launch`` and
 ``sim_spawn_launch`` under ``volq.sim.emit``, ``sim_forces_launch`` under
 ``volq.sim.forces``, no ``sim_torch`` and no copy under ``volq.sim*``;
-the reverse on the CPU):
+the reverse on the CPU), and the ``gpu`` case of the warm frame (three
+frames of a c5-like scene under sync-debug mode "error", with the
+recorded launches and no copy):
 
     python -m pytest --noconftest -m gpu tests/test_torch_trace.py -q
 """
@@ -26,8 +30,8 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from volq_torch.core import trace
-from volq_torch.core.device import d2h, h2d
+from volq_torch.core import device, trace
+from volq_torch.core.device import const, d2h, h2d
 from volq_torch.engine import loop
 from volq_torch.scene.config import CameraConfig, VolumeConfig, c5
 
@@ -196,6 +200,9 @@ def test_host_syncs_equal_the_trace_and_the_sync_warnings_on_card():
 
     state = step(state)
     n = 2
+    # a cleared cache: the first traced frame copies its configuration
+    # constants again, the second makes no copy
+    device.clear_consts()
     state, tab, counts, _ = traced_frames(step, state, n)
     counted = {}
     for (s, k), v in counts.items():
@@ -204,14 +211,17 @@ def test_host_syncs_equal_the_trace_and_the_sync_warnings_on_card():
     seen = {s: t["HtoD"] + t["DtoH"] for s, t in tab["spans"].items()
             if t["HtoD"] + t["DtoH"]}
     assert counted == seen
-    # the sim's and the light sweep's kernels read their inputs on the
-    # card: no copy
-    assert "volq.render.prep" in counted
-    assert "volq.bake.light" not in counted
-    assert not any(s.startswith("volq.sim") for s in counted)
+    # the copies are the constants' first copies (prep, slab bake and
+    # finish); the sim's and the light sweep's kernels read their inputs
+    # on the card: no copy
+    misses = sum(v for (_, k), v in counts.items() if k == "const_miss")
+    assert sum(counted.values()) == misses > 0
+    assert {"volq.render.prep", "volq.bake.slabs",
+            "volq.render.finish"} == set(counted)
     assert counts[("volq.frame", "frames")] == n
+    device.clear_consts()
     _, hits, total = sync_warnings(step, state, n)
-    assert hits == total == sum(counted.values())
+    assert hits == total == misses
 
 
 @pytest.mark.gpu
@@ -276,3 +286,113 @@ def test_a_card_frame_steps_the_sim_with_its_kernels():
                              ("volq.sim.emit", "sim_spawn_launch"): 1,
                              ("volq.sim.forces", "sim_forces_launch"): 1}
     trace.reset()
+
+
+@pytest.fixture
+def consts():
+    """The constants' cache, cleared before and after the test."""
+    device.clear_consts()
+    yield device._consts
+    device.clear_consts()
+
+
+def test_const_is_made_once_per_value_dtype_and_device(consts):
+    a = const([0.25, -1.5], "cpu", torch.float32)
+    assert const([0.25, -1.5], "cpu", torch.float32) is a
+    assert torch.equal(a, torch.tensor([0.25, -1.5]))
+    others = [const([0.25, -1.5], "cpu", torch.float64),
+              const([0.25, -1.5], "meta", torch.float32),
+              const([0.25, -1.0], "cpu", torch.float32),
+              const(0.0, "cpu", torch.float32),
+              const(-0.0, "cpu", torch.float32)]
+    assert len({id(t) for t in [a] + others}) == 6 == len(consts)
+    assert others[0].dtype == torch.float64
+    assert others[1].device.type == "meta"
+    assert torch.signbit(others[4]) and not torch.signbit(others[3])
+    z = const([3, 4], "cpu", torch.int64)
+    assert z.dtype == torch.int64 and const((3, 4), "cpu", torch.int64) is z
+
+
+def test_const_counts_its_miss_once_and_copies_only_then(consts):
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with trace.span("volq.t"):
+            m = const([1.0, 2.0, 4.0], torch.device("meta"), torch.float32)
+            for _ in range(3):
+                assert const([1.0, 2.0, 4.0], "meta", torch.float32) is m
+            const(7, "meta", torch.int64)
+            const([1.0, 2.0, 4.0], "cpu", torch.float32)     # not counted
+            const([1.0, 2.0, 4.0], "cpu", torch.float32)
+    assert trace.counters() == {("volq.t", "const_miss"): 2,
+                                ("volq.t", "h2d"): 2,
+                                ("volq.t", "const_hit"): 3}
+    trace.reset()
+
+
+def test_const_written_in_place_raises_at_the_next_hit(consts):
+    t = const([0.5, 1.5], "cpu", torch.float32)
+    t[None][:, 1].mul_(2.0)         # a write through a view counts too
+    with pytest.raises(RuntimeError, match="written in place"):
+        const([0.5, 1.5], "cpu", torch.float32)
+    # out-of-place reads, as the callers make, leave it usable
+    u = const([2.0], "cpu", torch.float32)
+    _ = (u + 1, u[None, :], u * u)
+    assert const([2.0], "cpu", torch.float32) is u
+
+
+def test_frames_bit_identical_with_the_const_cache_warm_and_cleared(consts):
+    """Two frames of one state of a tiny lit, coarse, interleaved,
+    animated scene (every bank re-baked) with the constants served from
+    the cache, and one after clearing it: the same bits; the second
+    frame makes no new constant."""
+    cfg = _tiny_c5()
+    r = cfg.render
+    assert r.light_steps > 0 and r.warp_coarse and r.warp_interleave
+    assert cfg.volume.animated
+    state, camera, light = loop.setup(cfg, "cpu")
+
+    def frame():
+        return loop.frame(state, camera, light, cfg)
+
+    device.clear_consts()
+    st0, im0, _ = frame()
+    made = dict(consts)
+    assert made
+    st1, im1, _ = frame()
+    st2, im2, _ = frame()
+    assert dict(consts) == made
+    device.clear_consts()
+    st3, im3, _ = frame()
+    for st, im in ((st1, im1), (st2, im2), (st3, im3)):
+        assert torch.equal(im0, im)
+        assert torch.equal(st0.volumes, st.volumes)
+        for a, b in zip(st0.particles, st.particles):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_warm_card_frames_make_no_sync_and_the_recorded_launches():
+    """After one warm frame, three frames of a c5-like animated scene
+    under sync-debug mode "error": no synchronizing operation, and per
+    frame A 1, B 1, the noise kernel 1, the light kernel 1 and the sim's
+    three launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the frame's kernels run there)")
+    from volq_torch import _build
+    cfg = _tiny_c5()
+    state, camera, light = loop.setup(cfg)
+    state = loop.frame(state, camera, light, cfg)[0]
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    n = 3
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n):
+            state = loop.frame(state, camera, light, cfg)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    want = ("warp_march_launch", "warp_composite_launch",
+            "noise_bake_launch", "light_bake_launch", "sim_scan_launch",
+            "sim_spawn_launch", "sim_forces_launch")
+    assert dict(_build.launches) == {name: n for name in want}

@@ -28,7 +28,10 @@ clears them.  Spans are named ``volq.<layer>[.<part>]``:
       volq.render.finish      the canvas over the background
 
 The counters ``h2d`` and ``d2h`` count the blocking copies between host
-and card (``core/device.h2d`` and ``d2h``).  Every kernel launch counts
+and card (``core/device.h2d`` and ``d2h``); ``const_miss`` and
+``const_hit`` count the configuration constants ``core/device.const``
+made (one ``h2d`` each) and served from its cache (no copy).  Every
+kernel launch counts
 under its C function's name (``_build.launch``: ``sim_scan_launch``,
 ``sim_spawn_launch``, ``sim_forces_launch``, ``noise_bake_launch``,
 ``light_bake_launch``, ``warp_march_launch``, ``warp_composite_launch``,

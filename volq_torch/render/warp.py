@@ -45,7 +45,7 @@ import torch
 
 from volq_torch.core.camera import make_camera
 from volq_torch.core import trace
-from volq_torch.core.device import h2d, scalar
+from volq_torch.core.device import const, scalar
 from volq_torch.core.types import Camera, Light, Particles
 from volq_torch.render.common import _fade, _near_fade
 from volq_torch.render import kernel as K
@@ -166,13 +166,14 @@ def bake_march_slabs(volumes, S: int, dtype, vx: int = 0):
     M, V = volumes.shape[0], volumes.shape[-1]
     dev = volumes.device
     consts = _march_z_consts(S, V)
-    z0 = h2d([z for z, _ in consts], dev)
-    fz = h2d([f for _, f in consts], dev, torch.float32)[None, :, None, None]
+    z0 = const([z for z, _ in consts], dev, torch.int64)
+    fz = const([f for _, f in consts], dev, torch.float32)[None, :, None, None]
     resample = bool(vx) and vx != V
     if resample:
         xc = _slab_x_consts(vx, V)
-        k0 = h2d([k for k, _ in xc], dev)
-        fx = h2d([f for _, f in xc], dev, torch.float32)[None, None, :, None]
+        k0 = const([k for k, _ in xc], dev, torch.int64)
+        fx = const([f for _, f in xc], dev,
+                   torch.float32)[None, None, :, None]
     out = torch.empty((M, S, vx if resample else V, V), dtype=dtype,
                       device=dev)
     for c0 in range(0, M, _SLAB_CHUNK):
@@ -364,8 +365,8 @@ def _grid_geometry(particles: Particles, camera: Camera, cfg: SceneConfig,
                          W, H, proj)
 
     # footprint overflow (conservative corner-projection rect)
-    signs = h2d([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
-                 for sz in (-1, 1)], pos.device, torch.float32)
+    signs = const([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
+                   for sz in (-1, 1)], pos.device, torch.float32)
     corners = pos[:, None, :] + half[:, None, None] * signs[None]
     crel = corners - camera.eye
     cpx, cpy = _project(_dot3(crel, camera.right), _dot3(crel, camera.up),
@@ -459,7 +460,7 @@ def _canvas_finish(C, T, cfg: SceneConfig, h_local: int, cropped=False):
             X = _cell_upsample(X, h_local, g.ratio, 1)
             X = _cell_upsample(X, r.width, g.ratio, 2)
         C, T = X[:3], X[3]
-        bg = h2d(r.background, C.device, torch.float32)[:, None, None]
+        bg = const(r.background, C.device, torch.float32)[:, None, None]
         rgb = C + T[None] * bg
         return torch.cat([rgb, (1.0 - T)[None]], dim=0).permute(1, 2, 0)
 
